@@ -1,0 +1,5 @@
+"""Model zoo of the PyTorch port: the dense GQA transformer."""
+
+from repro_torch.models.model import Model, build_model
+
+__all__ = ["Model", "build_model"]
