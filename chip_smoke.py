@@ -6,14 +6,18 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. the card's ``nvidia-smi`` name and power limit;
-2. build every CUDA kernel of the serving path from ``src/repro_torch/csrc``
-   (one ``nvcc`` per source, in parallel) and print the build seconds;
+2. build every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
+   source, in parallel) and print the build seconds;
 3. kernel phase: each kernel against its plain PyTorch version on the card,
-   at the serving path's shapes and some edge shapes. K1 (CiM fake-quant
+   at the main paths' shapes and some edge shapes. K1 (CiM fake-quant
    matmul) must be bit-exact on integer inputs; K2 (flash attention) must
    agree within 2e-2 max-abs in bf16 and 1e-5 in float32, with the plain
-   version and with the fp32 oracle. Each kernel's median time, its plain
-   version's time, its bound at H100 peaks and, for K2, the time of
+   version and with the fp32 oracle; K3 (bit-plane CiM matmul) and K4 (ideal
+   ADC) must be bit-exact (``torch.equal``), and K3 at the chip geometry
+   (rows 16, 5-bit ADC, 4/4 bits) must equal the integer matmul less half
+   the plane weight of every saturated plane pair (a 5-bit code cannot hold
+   a full 16-row count). Each kernel's median time, its plain version's
+   time, its bound at H100 peaks and, for K2, the time of
    ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick the
    port never calls) are printed;
 4. serve phase: ``serve_batch`` on smollm-135m at full width (30 layers,
@@ -28,10 +32,26 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. agreement: the reduced smollm-135m (float32) on the card against the same
    weights on the CPU (plain versions), prefill and decode logits within
    1e-3 of max|logit|;
-7. one JSON line of every kernel with its launches, times and bound, the
-   card's line again, and the final ``{"ok": true, ...}`` line.
+7. ops phase: the kernel ops a user calls, ``cim_matmul_op(mode="bitplane")``
+   on one full-width layer's seven linears (M 256) and ``adc_quant_op`` on
+   1 M analog values, with the counts zeroed before and read after: K3 and
+   K4 must each launch; the ops' results, and 4096 per-column quantization
+   scales, equal the CPU's bit for bit;
+8. bit-plane serve: ``serve_batch`` on smollm-135m at full width with
+   ``bitplane`` CiM linears (the noiseless memory-immersed SAR ADC, plain
+   PyTorch as in the JAX package) and flash prefill, batch 2, prompt 128
+   (the flash prefill takes whole 128-query blocks), 4 generated tokens;
+   K2 must launch 30 times; prefill s, decode tokens/s and peak device
+   memory; then one ``cim_matmul(mode="bitplane")`` at the gate shape held
+   to the integer matmul times the scales, and one gate linear at the
+   prefill's M under ``torch.profiler``;
+9. bit-plane agreement: phase 6 with ``bitplane`` linears;
+10. one JSON line of every kernel with its launches, times and bound, the
+    card's line again, and the final ``{"ok": true, ...}`` line.
 
-It imports nothing of JAX or of the JAX package ``repro``.
+Every number printed stands after the card's name and power limit (phase 1,
+repeated before the last line). It imports nothing of JAX or of the JAX
+package ``repro``.
 """
 
 from __future__ import annotations
@@ -90,6 +110,21 @@ def bound(n_bytes: float, ops: float, rate: float):
     rate and operations over the peak rate of their type."""
     t_bytes, t_ops = n_bytes / HBM_BPS * 1e3, ops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def saturation_deficit(torch, x_pat, w_pat, rows: int, bits: int):
+    """At rows 16 with a 5-bit ADC every plane count d digitizes to d, except
+    d = rows (code 2^5 does not exist), which comes back half a count short.
+    Returns, per output, half the signed weight of every (tile, plane pair)
+    with all ``rows`` bits set on both sides (signed ``bits``-bit operands):
+    (M, N) float32, exact."""
+    def side(p):  # (outputs, T): the plane weights of each tile's all-ones planes
+        p = p.to(torch.int32).reshape(p.shape[0], -1, rows)
+        wsum = torch.zeros(p.shape[:2], dtype=torch.float32, device=p.device)
+        for b in range(bits):
+            wsum += ((p >> b) & 1).all(dim=-1).float() * (-(2.0 ** b) if b == bits - 1 else 2.0 ** b)
+        return wsum
+    return 0.5 * (side(x_pat) @ side(w_pat.t()).t())
 
 
 def kernel_phase_k1(torch, cmm, ref):
@@ -219,6 +254,244 @@ def kernel_phase_k2(torch, fa, ref):
     return entry
 
 
+def kernel_phase_k3(torch, cmm):
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    max_err = 0.0
+    pats = lambda shape, bits: torch.randint(0, 1 << bits, shape, generator=gen, device="cuda",
+                                             dtype=torch.int32).to(torch.uint8)
+    # edge shapes: ragged M/N; rows 64 with a 5-bit ADC (lossy); rows 10 and
+    # 128 (tiles of one and four words); a_bits != w_bits; unsigned activations
+    for m, k, n, rows, adc, ab, wb, a_signed in [
+        (77, 112, 45, 16, 5, 8, 8, True), (130, 192, 70, 64, 5, 8, 8, True), (33, 40, 17, 10, 5, 8, 8, True),
+        (65, 256, 70, 128, 8, 8, 8, True), (20, 96, 33, 32, 6, 3, 5, True), (50, 128, 40, 16, 5, 4, 4, False),
+    ]:
+        kw = dict(rows=rows, adc_bits=adc, a_bits=ab, w_bits=wb, a_signed=a_signed)
+        x, w = pats((m, k), ab), pats((k, n), wb)
+        y, y_plain = cmm.cim_matmul_bp(x, w, **kw), cmm.cim_matmul_bp_plain(x, w, **kw)
+        max_err = max(max_err, float((y - y_plain).abs().max()))
+        if not torch.equal(y, y_plain):
+            raise AssertionError(f"K3 differs from its plain version at M{m} K{k} N{n} {kw}")
+    print("[k3] edge shapes (ragged M/N; rows 64 adc 5; rows 10, 128; 3/5 bits; unsigned): bit-exact")
+
+    def quantized(m, k, n, bits):  # the ops' operands: patterns of symmetric-quantized normals
+        from repro_torch.core.cim_linear import quantize_symmetric
+        from repro_torch.kernels.ops import _bit_patterns
+
+        x = torch.randn((m, k), generator=gen, device="cuda")
+        w = torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5
+        x_int, _ = quantize_symmetric(x, bits, True)
+        w_int, _ = quantize_symmetric(w, bits, True, per_axis=-1)
+        return _bit_patterns(x_int, bits, True), _bit_patterns(w_int, bits, True), x_int, w_int
+
+    per_shape, saturated = {}, 0
+    for label, rows, adc, bits in (("defaults", 128, 8, 8), ("chip", 16, 5, 4)):
+        kw = dict(rows=rows, adc_bits=adc, a_bits=bits, w_bits=bits)
+        for m in (1024, 4):
+            for k, n in sorted(set(LAYER_LINEARS)):
+                x, w, x_int, w_int = quantized(m, k, n, bits)
+                kp = -(-k // rows) * rows  # K zero-padded to whole tiles, as the op pads it
+                x, w = F.pad(x, (0, kp - k)).contiguous(), F.pad(w, (0, 0, 0, kp - k)).contiguous()
+                run = lambda: cmm.cim_matmul_bp(x, w, **kw)
+                plain = lambda: cmm.cim_matmul_bp_plain(x, w, **kw)
+                y, y_plain = run(), plain()
+                max_err = max(max_err, float((y - y_plain).abs().max()))
+                if not torch.equal(y, y_plain):
+                    raise AssertionError(f"K3 is not bit-exact to its plain version at M{m} K{k} N{n} ({label})")
+                note = "bit-exact"
+                if label == "chip":
+                    deficit = saturation_deficit(torch, x, w, rows, bits)
+                    saturated += int((deficit != 0).sum())
+                    if not torch.equal(y, x_int @ w_int - deficit):
+                        raise AssertionError(f"K3 at the chip geometry is not the integer matmul at M{m} K{k} N{n}")
+                    note += ", = integer matmul"
+                t = -(-k // rows)
+                n_bytes = m * k + k * n + 4 * m * n  # uint8 patterns in, float32 out
+                t_ops = 2 * bits * bits * m * k * n / INT8_OPS * 1e3 + 2 * bits * bits * m * t * n / FP32_FLOPS * 1e3
+                t_bytes = n_bytes / HBM_BPS * 1e3
+                per_shape[(label, m, k, n)] = (time_ms(run), time_ms(plain, batches=3, iters=3), t_bytes, t_ops)
+                ms, pms = per_shape[(label, m, k, n)][:2]
+                print(f"[k3] {label} (rows {rows}, adc {adc}, {bits}/{bits} bits) M{m} K{k} N{n}: kernel {ms:.4f} ms, "
+                      f"plain {pms:.4f} ms, bound {max(t_bytes, t_ops):.5f} ms "
+                      f"({'bytes' if t_bytes >= t_ops else 'operations'}), {note}")
+    print(f"[k3] chip geometry: {saturated} outputs held a saturated plane pair (16-row count read as 15.5)")
+    layer = [per_shape[("defaults", 1024, k, n)] for k, n in LAYER_LINEARS]
+    t_bytes, t_ops = sum(s[2] for s in layer), sum(s[3] for s in layer)
+    entry = {
+        "name": "cim_matmul_bp",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/cim_matmul_bp.cu",
+        "replaces": "src/repro/kernels/cim_matmul.py:56",
+        "launches": None,
+        "max_abs_err": max_err,
+        "ms": sum(s[0] for s in layer),
+        "plain_ms": sum(s[1] for s in layer),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+    }
+    print(f"[k3] one prefill layer (7 linears, M 1024, ops defaults): kernel {entry['ms']:.4f} ms, "
+          f"plain {entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.5f} ms ({entry['bound_by']})")
+    return entry
+
+
+def kernel_phase_k4(torch, aq):
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    max_err = 0.0
+    for shape in ((7, 130), (1, 31), (1024, 1024)):
+        v = torch.rand(shape, generator=gen, device="cuda") * 1.4 - 0.2  # under- and over-range too
+        for bits in (3, 5, 8):
+            for vdd in (1.0, 0.8):
+                out, out_plain = aq.adc_quant(v, bits=bits, vdd=vdd), aq.adc_quant_plain(v, bits=bits, vdd=vdd)
+                max_err = max(max_err, float((out - out_plain).abs().max()))
+                if not torch.equal(out, out_plain):
+                    raise AssertionError(f"K4 differs from its plain version at {shape}, bits {bits}, vdd {vdd}")
+    print("[k4] shapes (7, 130), (1, 31), (1024, 1024) x bits 3, 5, 8 x vdd 1.0, 0.8: bit-exact")
+    run = lambda: aq.adc_quant(v, bits=5, vdd=1.0)
+    plain = lambda: aq.adc_quant_plain(v, bits=5, vdd=1.0)
+    b_ms, b_by = bound(8 * v.numel(), 5 * v.numel(), FP32_FLOPS)  # float32 in and out
+    entry = {
+        "name": "adc_quant",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/adc_quant.cu",
+        "replaces": "src/repro/kernels/cim_matmul.py:175",
+        "launches": None,
+        "max_abs_err": max_err,
+        "ms": time_ms(run),
+        "plain_ms": time_ms(plain),
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+    }
+    print(f"[k4] 1024 x 1024 (1 M elements), 5 bits: kernel {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, "
+          f"bound {b_ms:.5f} ms ({b_by})")
+    return entry
+
+
+def ops_phase(torch, cmm, aq):
+    """The kernel ops a user calls, counts zeroed just before and read just
+    after: the bit-plane CiM op on one full-width layer's seven linears and
+    the ideal-ADC op on a 1 M-element tile. Each result equals the CPU's."""
+    from repro_torch.core.cim_linear import quantize_symmetric
+    from repro_torch.kernels import adc_quant_op, cim_matmul_op
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    xs = torch.randn((256, 1536), generator=gen, device="cuda")  # batch 2 x prompt 128
+    ws = {kn: torch.randn(kn, generator=gen, device="cuda") / kn[0] ** 0.5 for kn in set(LAYER_LINEARS)}
+    v = torch.rand((1024, 1024), generator=gen, device="cuda")
+    cmm.bp_launches = 0
+    aq.launches = 0
+    ys = [cim_matmul_op(xs[:, :k], ws[(k, n)], mode="bitplane") for k, n in LAYER_LINEARS]
+    v_hat = adc_quant_op(v, bits=5)
+    torch.cuda.synchronize()
+    launches = {"cim_matmul_bp": cmm.bp_launches, "adc_quant": aq.launches}
+    if launches["cim_matmul_bp"] < len(LAYER_LINEARS) or launches["adc_quant"] < 1:
+        raise AssertionError(f"ops launches {launches}: want K3 >= {len(LAYER_LINEARS)}, K4 >= 1")
+    k, n = LAYER_LINEARS[1]  # the k projection, also on the CPU (plain version)
+    y_cpu = cim_matmul_op(xs[:, :k].cpu(), ws[(k, n)].cpu(), mode="bitplane")
+    if not (torch.equal(ys[1].cpu(), y_cpu) and torch.equal(v_hat.cpu(), adc_quant_op(v.cpu(), bits=5))):
+        raise AssertionError("the ops' results on the card differ from the CPU's")
+    if not all(bool(torch.isfinite(y).all()) for y in ys):
+        raise AssertionError("cim_matmul_op(mode='bitplane') gave non-finite values")
+    # the per-column scales divide absmax by qmax: a true divide on the card
+    # too (a reciprocal multiply would part from the CPU on ~4% of columns)
+    w_wide = torch.randn((64, 4096), generator=gen, device="cuda")
+    scale = quantize_symmetric(w_wide, 8, True, per_axis=-1)[1]
+    if not torch.equal(scale.cpu(), quantize_symmetric(w_wide.cpu(), 8, True, per_axis=-1)[1]):
+        raise AssertionError("quantization scales differ between the card and the CPU")
+    print(f"[ops] cim_matmul_op(mode='bitplane') on 7 linears (M 256, ops defaults) and adc_quant_op "
+          f"(1024 x 1024): launches {launches}; k projection, ADC tile and 4096 column scales equal the "
+          f"CPU's bit for bit")
+    return launches
+
+
+def serve_bp_phase(torch, cmm, fa, aq):
+    """Full-width smollm-135m with bit-plane CiM linears, then one bit-plane
+    matmul at the gate shape held to the integer matmul times the scales."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.cim_linear import CiMConfig, cim_matmul, quantize_symmetric
+    from repro_torch.kernels.ops import _bit_patterns
+    from repro_torch.launch.serve import ServeSettings, serve_batch
+
+    cim = CiMConfig(mode="bitplane", ste=False)
+    cfg = dataclasses.replace(get_config("smollm-135m"), cim=cim, attn_impl="flash")
+    assert (cfg.n_layers, cfg.d_model, cfg.vocab, cfg.compute_dtype) == (30, 576, 49152, "bfloat16")
+    st = ServeSettings(batch=2, prompt_len=128, gen_len=4, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    cmm.launches = cmm.bp_launches = fa.launches = aq.launches = 0
+    out = serve_batch(cfg, st, device="cuda")
+    launches = {"cim_matmul_fq": cmm.launches, "flash_attention": fa.launches,
+                "cim_matmul_bp": cmm.bp_launches, "adc_quant": aq.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches != {"cim_matmul_fq": 0, "flash_attention": cfg.n_layers, "cim_matmul_bp": 0, "adc_quant": 0}:
+        raise AssertionError(f"bitplane serve launches {launches}: want K2 == {cfg.n_layers}, no other kernel")
+    gen = out["generated"]
+    if gen.shape != (st.batch, st.gen_len) or gen.min() < 0 or gen.max() >= cfg.vocab:
+        raise AssertionError(f"generated tokens out of range or shape: {gen.shape}, [{gen.min()}, {gen.max()}]")
+    if not bool(torch.isfinite(out["logits"][..., : cfg.vocab]).all()):
+        raise AssertionError("bitplane serve logits are not finite")
+    print(f"[serve-bp] smollm-135m full width, bitplane (rows 16, 5-bit SAR, 8/8 bits) + flash, batch {st.batch}, "
+          f"prompt {st.prompt_len}, gen {st.gen_len}: prefill {out['prefill_s']:.4f} s "
+          f"({st.batch * st.prompt_len / out['prefill_s']:.1f} tok/s), decode {out['decode_s']:.4f} s "
+          f"({out['decode_tok_s']:.2f} tok/s), peak device memory {peak_gb:.2f} GB; launches {launches}")
+    print(f"[serve-bp] sample generation: {gen[0].tolist()}")
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    m, k, n = 32, 576, 1536
+    x = torch.randn((m, k), generator=g, device="cuda")
+    w = torch.randn((k, n), generator=g, device="cuda") / k ** 0.5
+    y, stats = cim_matmul(x, w, cim, return_stats=True)
+    x_int, sx = quantize_symmetric(x, cim.a_bits, cim.a_signed)
+    w_int, sw = quantize_symmetric(w, cim.w_bits, cim.w_signed, per_axis=-1)
+    deficit = saturation_deficit(torch, _bit_patterns(x_int, 8, True), _bit_patterns(w_int, 8, True), cim.rows, 8)
+    want = (x_int @ w_int - deficit) * sx * sw
+    conversions = cim.a_bits * cim.w_bits * m * (k // cim.rows) * n
+    if not (torch.equal(y, want) and int(stats.conversions) == conversions
+            and int(stats.comparisons) == cim.adc_bits * conversions):
+        raise AssertionError(f"bitplane matmul at M{m} K{k} N{n}: max-abs {float((y - want).abs().max()):.3g} "
+                             f"from the integer matmul times the scales; stats {stats}")
+    print(f"[serve-bp] cim_matmul(bitplane) M{m} K{k} N{n}: equals (x_int @ w_int) * sx * sw bit for bit "
+          f"({int((deficit != 0).sum())} outputs with a saturated plane pair); {conversions} conversions, "
+          f"{int(stats.comparisons)} comparisons")
+    profile_bitplane_linear(torch, cim)
+    return out, peak_gb
+
+
+def profile_bitplane_linear(torch, cim):
+    """Where the bit-plane serve's time goes: one gate linear at the prefill's
+    M (batch 2 x prompt 128) under ``torch.profiler``; device busy time
+    against the call's wall time, and the kernels that take the most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.cim_linear import cim_matmul
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn((256, 576), generator=g, device="cuda").to(torch.bfloat16)
+    w = torch.randn((576, 1536), generator=g, device="cuda") / 24
+    cim_matmul(x, w, cim)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.time()
+    cim_matmul(x, w, cim)
+    torch.cuda.synchronize()
+    wall_s = time.time() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        cim_matmul(x, w, cim)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_us = lambda e: e.self_device_time_total
+    busy_s = sum(dev_us(e) for e in kernels) / 1e6
+    if busy_s == 0:
+        print("[serve-bp] the profiler recorded no device time: busy share not measured")
+        return
+    print(f"[serve-bp] profile of one gate linear (M 256, K 576, N 1536, bf16 in): device busy {busy_s:.4f} s "
+          f"of {wall_s:.4f} s wall unprofiled ({100 * busy_s / wall_s:.1f}% busy); "
+          f"{sum(e.count for e in kernels)} kernel launches")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
+        print(f"[serve-bp]   {dev_us(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+
+
 def serve_phase(torch, cmm, fa):
     from repro_torch.configs import get_config
     from repro_torch.core.cim_linear import CiMConfig
@@ -277,15 +550,15 @@ def profile_phase(torch, cfg, st, out):
         print(f"[profile]   {dev_us(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
 
 
-def agreement_phase(torch):
-    """Reduced smollm-135m in float32: the card (kernels) against the CPU
-    (plain versions) on the same weights."""
+def agreement_phase(torch, mode="fake_quant"):
+    """Reduced smollm-135m in float32 with ``mode`` CiM linears: the card
+    (kernels) against the CPU (plain versions) on the same weights."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.core.cim_linear import CiMConfig
     from repro_torch.models import build_model
 
     cfg = dataclasses.replace(
-        reduced(get_config("smollm-135m")), cim=CiMConfig(mode="fake_quant", ste=False), attn_impl="flash"
+        reduced(get_config("smollm-135m")), cim=CiMConfig(mode=mode, ste=False), attn_impl="flash"
     )
     m_cpu, m_gpu = build_model(cfg, "cpu"), build_model(cfg, "cuda")
     p_cpu = m_cpu.init(torch.Generator().manual_seed(3))
@@ -307,7 +580,8 @@ def agreement_phase(torch):
             tok = l_cpu[:, -1].argmax(-1).to(torch.int32)
             l_cpu, c_cpu = m_cpu.decode_step(p_cpu, tok, 128 + i, c_cpu)
             l_gpu, c_gpu = m_gpu.decode_step(p_gpu, tok.cuda(), 128 + i, c_gpu)
-    print(f"[agree] reduced smollm-135m f32, fake_quant + flash: card vs CPU logits within {worst:.3g} "
+    tag = "agree" if mode == "fake_quant" else "agree-bp"
+    print(f"[{tag}] reduced smollm-135m f32, {mode} + flash: card vs CPU logits within {worst:.3g} "
           f"of max|logit| (tol 1e-3), prefill + 3 decode steps")
 
 
@@ -318,6 +592,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this smoke runs on a GPU only", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import adc_quant as aq
     from repro_torch.kernels import build
     from repro_torch.kernels import cim_matmul as cmm
     from repro_torch.kernels import flash_attention as fa
@@ -341,12 +616,18 @@ def main() -> int:
 
     k1 = kernel_phase_k1(torch, cmm, ref)
     k2 = kernel_phase_k2(torch, fa, ref)
+    k3 = kernel_phase_k3(torch, cmm)
+    k4 = kernel_phase_k4(torch, aq)
     launches, cfg, st, out = serve_phase(torch, cmm, fa)
     profile_phase(torch, cfg, st, out)
     k1["launches"], k2["launches"] = launches["cim_matmul_fq"], launches["flash_attention"]
     agreement_phase(torch)
+    ops_launches = ops_phase(torch, cmm, aq)
+    k3["launches"], k4["launches"] = ops_launches["cim_matmul_bp"], ops_launches["adc_quant"]
+    serve_bp_phase(torch, cmm, fa, aq)
+    agreement_phase(torch, mode="bitplane")
 
-    print(json.dumps({"kernels": [k1, k2]}))
+    print(json.dumps({"kernels": [k1, k2, k3, k4]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -9,15 +9,24 @@ product-sum is digitized before the tiles are accumulated.
 Modes ported so far:
 
   * ``exact``      — plain matmul (no CiM).
+  * ``bitplane``   — faithful per-plane simulation: every (input-plane ×
+                     weight-plane × tile) product-sum is an analog MAV digitized
+                     by the memory-immersed ADC (``core.adc``, SAR or
+                     asymmetric SAR), then recombined with signed powers of
+                     two. Noiseless only: comparator noise and ladder mismatch
+                     wait for the PRNG port (ROADMAP.md, port queue A1). Plain
+                     PyTorch on every device, as the JAX package computes it
+                     in jnp outside its Pallas kernels.
   * ``fake_quant`` — integer per-tile partial sums passed through the
                      RMS-equivalent composite quantizer. On a CUDA tensor this
                      runs the hand-written fake-quant kernel
                      (``repro_torch.kernels.cim_matmul``), on a CPU tensor its
                      plain PyTorch version.
 
-``bitplane`` and ``int8_dot`` are not ported yet (ROADMAP.md, queue A) and
-raise ``NotImplementedError``. ``ste=True`` wraps the quantized output in a
-straight-through estimator (``detach``) so the op is trainable.
+``int8_dot`` is not ported yet (ROADMAP.md, port queue A10) and raises
+``NotImplementedError``, as does any ADC noise ``key`` (queue A1).
+``ste=True`` wraps the quantized output in a straight-through estimator
+(``detach``) so the op is trainable.
 """
 
 from __future__ import annotations
@@ -28,7 +37,14 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-__all__ = ["CiMConfig", "CimStats", "cim_matmul", "cim_linear", "quantize_symmetric"]
+from repro_torch.core import search_tree as st
+from repro_torch.core.adc import ADCConfig, _divisor, _needs_prng, convert
+from repro_torch.core.cim_array import bit_planes, plane_weights
+from repro_torch.core.mav_stats import analytic_code_pmf
+
+__all__ = [
+    "CiMConfig", "CimStats", "cim_matmul", "cim_linear", "quantize_symmetric", "digitization_stats",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +68,21 @@ class CiMConfig:
         if self.mode not in ("exact", "fake_quant", "bitplane", "int8_dot"):
             raise ValueError(f"unknown CiM mode {self.mode!r}")
 
+    def adc_config(self) -> ADCConfig:
+        return ADCConfig(
+            bits=self.adc_bits,
+            n_ref_columns=max(32, 1 << self.adc_bits),
+            comparator_sigma=self.comparator_sigma,
+            ref_mismatch_sigma=self.ref_mismatch_sigma,
+            mode="sar_asym" if self.search == "sar_asym" else "sar",
+        )
+
+    def search_tree(self) -> st.TreeTables:
+        if self.search == "sar_asym":
+            pmf = analytic_code_pmf(self.rows, self.adc_bits)
+            return st.optimal_tree(pmf)
+        return st.symmetric_tree(self.adc_bits)
+
 
 class CimStats(NamedTuple):
     conversions: torch.Tensor  # total ADC conversions performed
@@ -73,7 +104,9 @@ def quantize_symmetric(
     else:
         absmax = torch.amax(mag)
     qmax = (1 << (bits - 1)) - 1 if signed else (1 << bits) - 1
-    scale = torch.where(absmax > 0, absmax / qmax, torch.ones_like(absmax))
+    # a tensor divisor: a true divide on CUDA too, as on the CPU and in eager JAX
+    q_t = torch.tensor(qmax, dtype=absmax.dtype, device=absmax.device)
+    scale = torch.where(absmax > 0, absmax / q_t, torch.ones_like(absmax))
     lo = -qmax - 1 if signed else 0
     x_int = torch.clamp(torch.round(x / scale), lo, qmax)
     return x_int, scale
@@ -86,6 +119,58 @@ def _pad_reduction(x_int, w_int, rows):
         x_int = F.pad(x_int, (0, pad))
         w_int = F.pad(w_int, (0, 0, 0, pad))
     return x_int, w_int, (k + pad) // rows
+
+
+def _bitplane_matmul(x_int, w_int, cfg: CiMConfig, key=None, row_offset=0):
+    """x_int (M,K) @ w_int (K,N) through per-plane CiM arrays + in-memory ADC.
+
+    ``row_offset`` is the global index of ``x_int``'s first row; it places the
+    per-row comparator noise keys of the noisy ADC, which waits for the PRNG
+    port (any ``key`` raises). Noiseless, the MAV of every (plane_a, plane_w,
+    tile) is digitized by the configured SAR search, reconstructed by floor
+    (the raw code times one LSB) and recombined.
+
+    Returns (y_int float32 (M,N), CimStats). The recombined sum is exact, and
+    so independent of its order, while every partial sum stays below 2^24
+    granules of ``rows / 2^adc_bits``; ``comparisons`` is summed in float32 as
+    the JAX package sums it (rounded above 2^24).
+    """
+    if key is not None:
+        raise _needs_prng("the bitplane ADC's comparator noise and ladder mismatch")
+    m, _ = x_int.shape
+    n = w_int.shape[1]
+    r = cfg.rows
+    x_int, w_int, t = _pad_reduction(x_int, w_int, r)
+
+    xb = bit_planes(x_int, cfg.a_bits, cfg.a_signed).reshape(cfg.a_bits, m, t, r).float()
+    wb = bit_planes(w_int, cfg.w_bits, cfg.w_signed).reshape(cfg.w_bits, t, r, n).float()
+
+    # analog MAV of every (plane_a, plane_w, tile): (A, W, M, T, N) in [0,1]
+    mav = torch.einsum("amtr,btrn->abmtn", xb, wb)
+    del xb, wb
+    mav.div_(_divisor(r, mav))
+    # half-LSB bias (standard comparator/DAC offset) so the discrete MAV
+    # levels k/R sit mid-bin instead of exactly on code boundaries
+    mav.add_(0.5 / (1 << cfg.adc_bits))
+
+    adc_cfg = cfg.adc_config()
+    res = convert(mav, adc_cfg, tree=cfg.search_tree())
+    conversions = mav.numel()
+    del mav
+    # floor reconstruction: digital output is the raw code scaled by one LSB,
+    # zero-bias on empty tiles and exact whenever 2^adc_bits >= 2*rows
+    counts = res.codes.float() / (1 << cfg.adc_bits) * adc_cfg.vdd * r
+    if cfg.exact_counts:
+        counts = torch.round(counts)
+
+    wa = torch.as_tensor(plane_weights(cfg.a_bits, cfg.a_signed), dtype=torch.float32, device=counts.device)
+    ww = torch.as_tensor(plane_weights(cfg.w_bits, cfg.w_signed), dtype=torch.float32, device=counts.device)
+    y_int = torch.tensordot(torch.outer(wa, ww), counts.sum(dim=3), dims=([0, 1], [0, 1]))
+    stats = CimStats(
+        conversions=torch.tensor(conversions, dtype=torch.int32, device=counts.device),
+        comparisons=res.comparisons.float().sum().to(torch.int32),
+    )
+    return y_int, stats
 
 
 def _fake_quant_matmul(x_int, w_int, cfg: CiMConfig):
@@ -115,8 +200,7 @@ def _fake_quant_matmul(x_int, w_int, cfg: CiMConfig):
 
 def _not_ported(mode: str):
     return NotImplementedError(
-        f"CiM mode {mode!r} is not ported to PyTorch yet "
-        f"(ROADMAP.md, port queue A: core/cim_linear bitplane and int8_dot)"
+        f"CiM mode {mode!r} is not ported to PyTorch yet (ROADMAP.md, port queue A10)"
     )
 
 
@@ -130,14 +214,25 @@ def cim_matmul(
     """``y = x @ w`` through the CiM pipeline.
 
     ``x``: (..., K); ``w``: (K, N). Leading dims of x are flattened. ``key``
-    (ADC noise) belongs to the modes that are not ported yet and must be None.
+    (ADC noise) waits for the PRNG port and must be None.
     """
-    if cfg.mode in ("bitplane", "int8_dot"):
+    if cfg.mode == "int8_dot":
         raise _not_ported(cfg.mode)
     if key is not None:
-        raise _not_ported("noisy ADC")
+        raise _needs_prng("the CiM ADC's noise")
+    stats = None
     if cfg.mode == "exact":
         y = x @ w
+    elif cfg.mode == "bitplane":
+        batch_shape = x.shape[:-1]
+        xm = x.reshape(-1, x.shape[-1])
+        x_int, sx = quantize_symmetric(xm, cfg.a_bits, cfg.a_signed)
+        w_int, sw = quantize_symmetric(w, cfg.w_bits, cfg.w_signed, per_axis=-1)
+        y_int, stats = _bitplane_matmul(x_int, w_int, cfg)
+        y = y_int * sx * sw  # sw broadcasts (1, N)
+        if cfg.ste:
+            y = _ste(y, xm, w)
+        y = y.reshape(*batch_shape, w.shape[1])
     else:
         from repro_torch.kernels.ops import cim_matmul_op
 
@@ -147,12 +242,20 @@ def cim_matmul(
             a_signed=cfg.a_signed, w_signed=cfg.w_signed,
         )
         if cfg.ste:
-            y_lin = x @ w
-            y = y_lin + (y - y_lin).detach()
+            y = _ste(y, x, w)
     if return_stats:
-        z = torch.zeros((), dtype=torch.int32, device=y.device)
-        return y, CimStats(z, z)
+        if stats is None:
+            z = torch.zeros((), dtype=torch.int32, device=y.device)
+            stats = CimStats(z, z)
+        return y, stats
     return y
+
+
+def _ste(y_q: torch.Tensor, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Straight-through estimator: the forward value of ``y_q``, the gradient
+    of ``x @ w``."""
+    y_lin = x @ w
+    return y_lin + (y_q - y_lin).detach()
 
 
 def cim_linear(
@@ -170,3 +273,18 @@ def cim_linear(
     if bias is not None:
         y = y + bias
     return y
+
+
+def digitization_stats(cfg: CiMConfig, m: int, k: int, n: int) -> dict:
+    """Analytic per-matmul digitization cost (conversions, expected
+    comparisons) for the configured search under the Binomial MAV model."""
+    t = -(-k // cfg.rows)
+    conversions = cfg.a_bits * cfg.w_bits * m * t * n
+    pmf = analytic_code_pmf(cfg.rows, cfg.adc_bits)
+    tree = cfg.search_tree()
+    e_cmp = tree.expected_depth(pmf)
+    return {
+        "conversions": conversions,
+        "expected_comparisons_per_conversion": e_cmp,
+        "total_comparisons": conversions * e_cmp,
+    }

@@ -23,8 +23,8 @@ from pathlib import Path
 __all__ = ["SOURCES", "NVCC_FLAGS", "build", "load", "find_nvcc", "build_dir"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("cim_matmul_fq", "flash_attention")
-# No --use_fast_math: the fake-quant kernel's divides must stay IEEE-exact.
+SOURCES = ("cim_matmul_fq", "flash_attention", "cim_matmul_bp", "adc_quant")
+# No --use_fast_math: the CiM and ADC kernels' divides must stay IEEE-exact.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

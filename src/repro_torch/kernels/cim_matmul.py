@@ -1,14 +1,22 @@
-"""CiM fake-quant matmul: the hand-written CUDA kernel and its plain version.
+"""CiM matmuls: the hand-written CUDA kernels and their plain versions.
 
-The PyTorch/CUDA counterpart of the Pallas kernel
-``repro.kernels.cim_matmul._cim_matmul_kernel_fakequant``: the reduction
-dimension is tiled into ``rows``-sized "CiM arrays"; each tile's exact integer
-partial product-sum is quantized with the RMS-equivalent composite step,
-``round_half_even(partial / step) * step``, and the tiles are summed.
+The PyTorch/CUDA counterparts of the two Pallas kernels of
+``repro.kernels.cim_matmul``. The reduction dimension is tiled into
+``rows``-sized "CiM arrays":
 
-:func:`cim_matmul_fq` runs the CUDA kernel (``csrc/cim_matmul_fq.cu``) on CUDA
-tensors and :func:`cim_matmul_fq_plain` on CPU tensors; it never falls back
-from one to the other. ``launches`` counts the kernel's launches.
+* fake-quant (``_cim_matmul_kernel_fakequant``): each tile's exact integer
+  partial product-sum is quantized with the RMS-equivalent composite step,
+  ``round_half_even(partial / step) * step``, and the tiles are summed.
+  :func:`cim_matmul_fq` runs ``csrc/cim_matmul_fq.cu``; ``launches`` counts
+  its launches.
+* bit-plane (``_cim_matmul_kernel_bitplane``): every (activation plane,
+  weight plane) pair of every tile is an MAV digitized by an ideal ADC,
+  reconstructed by floor and recombined with signed powers of two.
+  :func:`cim_matmul_bp` runs ``csrc/cim_matmul_bp.cu``; ``bp_launches``
+  counts its launches.
+
+Each wrapper runs its CUDA kernel on CUDA tensors and its plain version on CPU
+tensors; it never falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -18,11 +26,15 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ref
 
-__all__ = ["cim_matmul_fq", "cim_matmul_fq_plain", "launches"]
+__all__ = [
+    "cim_matmul_fq", "cim_matmul_fq_plain", "launches",
+    "cim_matmul_bp", "cim_matmul_bp_plain", "bp_launches",
+]
 
 launches = 0  # kernel launches by cim_matmul_fq (plain CPU calls do not count)
+bp_launches = 0  # kernel launches by cim_matmul_bp (plain CPU calls do not count)
 
 
 def cim_matmul_fq_plain(
@@ -100,4 +112,85 @@ def _launch(x: torch.Tensor, w: torch.Tensor, rows: int, step: float) -> torch.T
     if err:
         raise RuntimeError(f"cim_matmul_fq: kernel launch failed with CUDA error {err}")
     launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Bit-plane CiM matmul
+# ---------------------------------------------------------------------------
+
+
+def cim_matmul_bp_plain(
+    x_pat: torch.Tensor, w_pat: torch.Tensor, *, rows: int, adc_bits: int,
+    a_bits: int, w_bits: int, a_signed: bool = True, w_signed: bool = True,
+) -> torch.Tensor:
+    """Plain PyTorch version: ``ref.cim_matmul_ref(mode="bitplane")`` on the
+    operands' two's-complement patterns (non-negative, below 2^bits; signed
+    integers work too). K a multiple of ``rows``; float32 (M, N)."""
+    return ref.cim_matmul_ref(
+        x_pat, w_pat, rows=rows, adc_bits=adc_bits, mode="bitplane",
+        a_bits=a_bits, w_bits=w_bits, a_signed=a_signed, w_signed=w_signed,
+    )
+
+
+def cim_matmul_bp(
+    x_pat: torch.Tensor, w_pat: torch.Tensor, *, rows: int, adc_bits: int,
+    a_bits: int, w_bits: int, a_signed: bool = True, w_signed: bool = True,
+) -> torch.Tensor:
+    """Bit-plane CiM matmul of ``x_pat`` (M, K) and ``w_pat`` (K, N), the
+    two's-complement bit patterns of the quantized operands (plane ``p`` is
+    bit ``p``); K a multiple of ``rows``; returns float32 (M, N).
+
+    CPU tensors take the plain version. CUDA tensors must be contiguous uint8
+    on one device (at most 8 planes each, ``rows <= 1024``), and launch the
+    kernel."""
+    kw = dict(rows=rows, adc_bits=adc_bits, a_bits=a_bits, w_bits=w_bits, a_signed=a_signed, w_signed=w_signed)
+    if x_pat.device.type == "cpu" and w_pat.device.type == "cpu":
+        return cim_matmul_bp_plain(x_pat, w_pat, **kw)
+    return _launch_bp(x_pat, w_pat, **kw)
+
+
+def _bp_lib():
+    lib = build.load("cim_matmul_bp")
+    fn = lib.cim_matmul_bp
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_bp(x, w, *, rows, adc_bits, a_bits, w_bits, a_signed, w_signed):
+    global bp_launches
+    if x.device.type != "cuda" or w.device != x.device:
+        raise ValueError(
+            f"cim_matmul_bp: operands on {x.device} and {w.device}; the kernel "
+            f"takes two tensors on one CUDA device (CPU tensors take the plain version)"
+        )
+    if x.dtype != torch.uint8 or w.dtype != torch.uint8:
+        raise TypeError(f"cim_matmul_bp: the kernel takes uint8 bit patterns, got {x.dtype}, {w.dtype}")
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"cim_matmul_bp: shapes {tuple(x.shape)} @ {tuple(w.shape)}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("cim_matmul_bp: operands must be contiguous")
+    m, k = x.shape
+    n = w.shape[1]
+    if m == 0 or n == 0 or k == 0 or k % rows:
+        raise ValueError(f"cim_matmul_bp: M={m}, N={n}, K={k} (K a multiple of rows={rows})")
+    if not (1 <= a_bits <= 8 and 1 <= w_bits <= 8 and 1 <= rows <= 1024 and 1 <= adc_bits <= 24):
+        raise ValueError(
+            f"cim_matmul_bp: the kernel takes 1..8 planes a side, rows <= 1024 and adc_bits <= 24; "
+            f"got a_bits={a_bits}, w_bits={w_bits}, rows={rows}, adc_bits={adc_bits}"
+        )
+    t, wpt = k // rows, -(-rows // 32)
+    xw = torch.empty((m * t * a_bits * wpt,), dtype=torch.int32, device=x.device)
+    ww = torch.empty((n * t * w_bits * wpt,), dtype=torch.int32, device=x.device)
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    err = _bp_lib()(
+        x.data_ptr(), w.data_ptr(), xw.data_ptr(), ww.data_ptr(), out.data_ptr(),
+        m, n, k, rows, a_bits, w_bits, int(a_signed), int(w_signed), adc_bits,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"cim_matmul_bp: kernel launch failed with CUDA error {err}")
+    bp_launches += 1
     return out

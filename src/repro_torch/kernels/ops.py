@@ -3,17 +3,34 @@ handling and reshape (counterpart of ``repro.kernels.ops``).
 
 ``cim_matmul_op(x, w, ...)`` is the accelerated counterpart of
 ``core.cim_linear.cim_matmul`` with an ideal (noiseless) ADC: on CUDA tensors
-it runs the fake-quant CUDA kernel on int8 operands, on CPU tensors the
-kernel's plain version.
+it runs the fake-quant or the bit-plane CUDA kernel, on CPU tensors the
+kernel's plain version. ``adc_quant_op(v, ...)`` digitizes and reconstructs a
+2-D tile of analog values with the ideal-ADC kernel.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.cim_linear import CiMConfig, _fake_quant_matmul, quantize_symmetric
+from repro_torch.core.cim_linear import CiMConfig, _fake_quant_matmul, _pad_reduction, quantize_symmetric
+from repro_torch.kernels.adc_quant import adc_quant
+from repro_torch.kernels.cim_matmul import cim_matmul_bp
 
-__all__ = ["cim_matmul_op"]
+__all__ = ["cim_matmul_op", "adc_quant_op"]
+
+
+def _bit_patterns(v_int: torch.Tensor, bits: int, signed: bool) -> torch.Tensor:
+    """Two's-complement bit patterns of integer-valued ``v_int`` over ``bits``
+    bits (plane ``p`` is bit ``p``): uint8 on CUDA, where the kernel takes at
+    most 8 planes, int32 on the CPU."""
+    p = v_int.to(torch.int32)
+    if signed:
+        p = torch.where(p < 0, p + (1 << bits), p)
+    if p.is_cuda:
+        if bits > 8:
+            raise ValueError(f"the CUDA bit-plane kernel takes uint8 operands; {bits} bits exceed 8")
+        p = p.to(torch.uint8)
+    return p
 
 
 def cim_matmul_op(
@@ -28,22 +45,39 @@ def cim_matmul_op(
     a_signed: bool = True,
     w_signed: bool = True,
 ) -> torch.Tensor:
-    """CiM-quantized ``x @ w``. K is padded to a multiple of ``rows`` only."""
-    if mode != "fake_quant":
-        raise NotImplementedError(
-            f"cim_matmul_op mode {mode!r}: the bitplane kernel is not ported yet "
-            f"(ROADMAP.md, port queue B)"
-        )
+    """CiM-quantized ``x @ w``. K is padded to a multiple of ``rows`` only
+    (zero tiles digitize to code 0, as the JAX wrapper's padding to its K
+    block does)."""
+    if mode not in ("fake_quant", "bitplane"):
+        raise ValueError(f"unknown mode {mode!r}")
     batch_shape = x.shape[:-1]
     k = x.shape[-1]
     n = w.shape[1]
     xm = x.reshape(-1, k)
     x_int, sx = quantize_symmetric(xm, a_bits, a_signed)
     w_int, sw = quantize_symmetric(w, w_bits, w_signed, per_axis=-1)
-    cfg = CiMConfig(
-        mode="fake_quant", a_bits=a_bits, w_bits=w_bits, adc_bits=adc_bits,
-        rows=rows, a_signed=a_signed, w_signed=w_signed, ste=False,
-    )
-    y, _ = _fake_quant_matmul(x_int, w_int, cfg)
+    if mode == "fake_quant":
+        cfg = CiMConfig(
+            mode="fake_quant", a_bits=a_bits, w_bits=w_bits, adc_bits=adc_bits,
+            rows=rows, a_signed=a_signed, w_signed=w_signed, ste=False,
+        )
+        y, _ = _fake_quant_matmul(x_int, w_int, cfg)
+    else:
+        x_pat, w_pat, _ = _pad_reduction(
+            _bit_patterns(x_int, a_bits, a_signed), _bit_patterns(w_int, w_bits, w_signed), rows
+        )
+        y = cim_matmul_bp(
+            x_pat.contiguous(), w_pat.contiguous(), rows=rows, adc_bits=adc_bits,
+            a_bits=a_bits, w_bits=w_bits, a_signed=a_signed, w_signed=w_signed,
+        )
     y = y * sx * sw
     return y.reshape(*batch_shape, n)
+
+
+def adc_quant_op(v: torch.Tensor, *, bits: int = 5, vdd: float = 1.0) -> torch.Tensor:
+    """Ideal-ADC quantize + reconstruct of a 2-D analog-value array (float32
+    out). On CUDA ``v`` must be float32; the kernel masks its ragged edge
+    itself, so nothing is padded."""
+    if v.dim() != 2:
+        raise ValueError(f"adc_quant_op takes a 2-D array, got shape {tuple(v.shape)}")
+    return adc_quant(v.contiguous(), bits=bits, vdd=vdd).float()

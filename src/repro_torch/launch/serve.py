@@ -1,13 +1,17 @@
 """Batched serving of the PyTorch port (counterpart of
 ``repro.launch.serve``): one batched prefill, then lock-step greedy decode.
 
-Supports the paper's CiM-quantized inference mode (``--cim fake_quant``): every
-linear runs the CiM fake-quant CUDA kernel, and with ``attn_impl="flash"``
-every prefill layer runs the flash-attention CUDA kernel.
+Supports the paper's CiM-quantized inference modes: with ``--cim fake_quant``
+every linear runs the CiM fake-quant CUDA kernel; with ``--cim bitplane`` every
+linear is the faithful bit-plane simulation with the noiseless
+memory-immersed SAR ADC (``core.cim_linear``, plain PyTorch as in the JAX
+package). With ``attn_impl="flash"`` every prefill layer runs the
+flash-attention CUDA kernel.
 
 CLI::
 
     python -m repro_torch.launch.serve --arch smollm-135m --cim fake_quant
+    python -m repro_torch.launch.serve --arch smollm-135m --cim bitplane
 
 The ``--fabric*`` and ``--obs-*`` options of the JAX serve CLI are not ported
 yet (ROADMAP.md, port queue A).
@@ -126,7 +130,7 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen-len", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--cim", default=None, choices=[None, "fake_quant"])
+    ap.add_argument("--cim", default=None, choices=[None, "fake_quant", "bitplane"])
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, reduced
+from repro_torch.kernels import adc_quant as aq
 from repro_torch.kernels import build
 from repro_torch.kernels import cim_matmul as cmm
 from repro_torch.kernels import flash_attention as fa
@@ -42,6 +43,8 @@ def test_port_imports_with_jax_blocked():
         "sys.modules['repro'] = None\n"
         "import repro_torch, repro_torch.launch.serve, repro_torch.kernels, repro_torch.obs\n"
         "import repro_torch.models.weights, repro_torch.kernels.flash_attention\n"
+        "import repro_torch.core.adc, repro_torch.core.search_tree, repro_torch.core.mav_stats\n"
+        "import repro_torch.kernels.adc_quant\n"
         "print('imported')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -63,7 +66,7 @@ def test_default_device_raises_without_cuda():
 def test_wrappers_never_fall_back_from_a_non_cpu_tensor():
     """Only CPU tensors take the plain version: any other device goes to the
     kernel path, which raises here instead of computing in plain PyTorch."""
-    before = (cmm.launches, fa.launches)
+    before = (cmm.launches, fa.launches, cmm.bp_launches, aq.launches)
     x = torch.zeros((4, 32), dtype=torch.int8, device="meta")
     w = torch.zeros((32, 8), dtype=torch.int8, device="meta")
     with pytest.raises(ValueError, match="CUDA device"):
@@ -73,11 +76,19 @@ def test_wrappers_never_fall_back_from_a_non_cpu_tensor():
     q = torch.zeros((1, 2, 128, 32), device="meta")
     with pytest.raises(ValueError, match="CUDA device"):
         fa.flash_attention(q, q, q)
-    assert (cmm.launches, fa.launches) == before
+    bp = dict(rows=16, adc_bits=5, a_bits=8, w_bits=8)
+    xu, wu = x.to(torch.uint8), w.to(torch.uint8)
+    with pytest.raises(ValueError, match="CUDA device"):
+        cmm.cim_matmul_bp(xu, wu, **bp)
+    with pytest.raises(ValueError, match="CUDA device"):
+        cmm.cim_matmul_bp(torch.zeros((4, 32), dtype=torch.uint8), wu, **bp)
+    with pytest.raises(ValueError, match="CUDA device"):
+        aq.adc_quant(torch.zeros((4, 32), device="meta"), bits=5)
+    assert (cmm.launches, fa.launches, cmm.bp_launches, aq.launches) == before
 
 
 def test_cpu_calls_take_the_plain_version_and_count_no_launch():
-    before = (cmm.launches, fa.launches)
+    before = (cmm.launches, fa.launches, cmm.bp_launches, aq.launches)
     xi = torch.randint(-128, 128, (8, 32), generator=torch.Generator().manual_seed(0)).float()
     wi = torch.randint(-128, 128, (32, 8), generator=torch.Generator().manual_seed(1)).float()
     torch.testing.assert_close(
@@ -87,7 +98,11 @@ def test_cpu_calls_take_the_plain_version_and_count_no_launch():
     )
     q = torch.randn((1, 2, 128, 32), generator=torch.Generator().manual_seed(2))
     torch.testing.assert_close(fa.flash_attention(q, q, q), fa.flash_attention_plain(q, q, q), rtol=0, atol=0)
-    assert (cmm.launches, fa.launches) == before
+    bp = dict(rows=16, adc_bits=5, a_bits=8, w_bits=8)
+    torch.testing.assert_close(cmm.cim_matmul_bp(xi, wi, **bp), cmm.cim_matmul_bp_plain(xi, wi, **bp), rtol=0, atol=0)
+    v = torch.rand((8, 40), generator=torch.Generator().manual_seed(3))
+    torch.testing.assert_close(aq.adc_quant(v, bits=5, vdd=0.8), aq.adc_quant_plain(v, bits=5, vdd=0.8), rtol=0, atol=0)
+    assert (cmm.launches, fa.launches, cmm.bp_launches, aq.launches) == before
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -98,6 +113,8 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build()
     assert build.NVCC_FLAGS[:2] == ("-gencode", "arch=compute_90a,code=sm_90a")
+    assert set(build.SOURCES) == {"cim_matmul_fq", "flash_attention", "cim_matmul_bp", "adc_quant"}
+    assert all((build.CSRC / f"{name}.cu").is_file() for name in build.SOURCES)
     assert "--use_fast_math" not in build.NVCC_FLAGS
 
 

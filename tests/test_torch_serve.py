@@ -27,7 +27,11 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 
-@pytest.mark.parametrize("cim", [None, dict(mode="fake_quant", ste=False)], ids=["exact", "fake_quant"])
+@pytest.mark.parametrize(
+    "cim",
+    [None, dict(mode="fake_quant", ste=False), dict(mode="bitplane", ste=False)],
+    ids=["exact", "fake_quant", "bitplane"],
+)
 def test_serve_batch_tokens_match_jax(cim):
     cj = j_reduced(j_get_config("smollm-135m"))
     ct = dataclasses.replace(reduced(get_config("smollm-135m")), attn_impl="flash")
@@ -71,3 +75,15 @@ def test_serve_cli_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "[serve] smollm-135m on cpu: prefill" in out
     assert "sample generation" in out
+
+
+def test_serve_cli_bitplane_on_cpu(capsys):
+    tserve.main([
+        "--arch", "smollm-135m", "--reduced", "--batch", "2", "--prompt-len", "8",
+        "--gen-len", "2", "--cim", "bitplane", "--device", "cpu",
+    ])
+    out = capsys.readouterr().out
+    assert "[serve] smollm-135m on cpu: prefill" in out
+    assert "sample generation" in out
+    with pytest.raises(SystemExit):
+        tserve.main(["--arch", "smollm-135m", "--cim", "analog", "--device", "cpu"])
