@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import search_tree as st
+from repro_torch.device import divisor
 
 __all__ = [
     "ADCConfig",
@@ -98,13 +99,6 @@ def _no_comparator_noise(sigma: float) -> None:
         raise ValueError("comparator noise requires a PRNG key")
 
 
-def _divisor(value: float, like: torch.Tensor) -> torch.Tensor:
-    """``value`` as a float32 tensor on ``like``'s device: dividing by it is a
-    true IEEE divide on every device (CUDA divides by a Python scalar through
-    its reciprocal)."""
-    return torch.tensor(value, dtype=torch.float32, device=like.device)
-
-
 # ---------------------------------------------------------------------------
 # Reference generation (memory-immersed capacitive DAC)
 # ---------------------------------------------------------------------------
@@ -136,7 +130,7 @@ def make_reference_ladder(cfg: ADCConfig, key=None, device=None) -> torch.Tensor
 def quantize_ideal(v: torch.Tensor, bits: int, vdd: float = 1.0) -> torch.Tensor:
     """Ideal mid-tread staircase: code k covers [k*LSB, (k+1)*LSB)."""
     n = 1 << bits
-    return torch.clamp(torch.floor(v / _divisor(vdd, v) * n), 0, n - 1).to(torch.int32)
+    return torch.clamp(torch.floor(v / divisor(vdd, v) * n), 0, n - 1).to(torch.int32)
 
 
 def dequantize(codes: torch.Tensor, bits: int, vdd: float = 1.0) -> torch.Tensor:

@@ -38,9 +38,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import search_tree as st
-from repro_torch.core.adc import ADCConfig, _divisor, _needs_prng, convert
+from repro_torch.core.adc import ADCConfig, _needs_prng, convert
 from repro_torch.core.cim_array import bit_planes, plane_weights
 from repro_torch.core.mav_stats import analytic_code_pmf
+from repro_torch.device import divisor
 
 __all__ = [
     "CiMConfig", "CimStats", "cim_matmul", "cim_linear", "quantize_symmetric", "digitization_stats",
@@ -104,9 +105,7 @@ def quantize_symmetric(
     else:
         absmax = torch.amax(mag)
     qmax = (1 << (bits - 1)) - 1 if signed else (1 << bits) - 1
-    # a tensor divisor: a true divide on CUDA too, as on the CPU and in eager JAX
-    q_t = torch.tensor(qmax, dtype=absmax.dtype, device=absmax.device)
-    scale = torch.where(absmax > 0, absmax / q_t, torch.ones_like(absmax))
+    scale = torch.where(absmax > 0, absmax / divisor(qmax, absmax, absmax.dtype), torch.ones_like(absmax))
     lo = -qmax - 1 if signed else 0
     x_int = torch.clamp(torch.round(x / scale), lo, qmax)
     return x_int, scale
@@ -148,7 +147,7 @@ def _bitplane_matmul(x_int, w_int, cfg: CiMConfig, key=None, row_offset=0):
     # analog MAV of every (plane_a, plane_w, tile): (A, W, M, T, N) in [0,1]
     mav = torch.einsum("amtr,btrn->abmtn", xb, wb)
     del xb, wb
-    mav.div_(_divisor(r, mav))
+    mav.div_(divisor(r, mav))
     # half-LSB bias (standard comparator/DAC offset) so the discrete MAV
     # levels k/R sit mid-bin instead of exactly on code boundaries
     mav.add_(0.5 / (1 << cfg.adc_bits))

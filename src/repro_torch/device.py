@@ -1,11 +1,14 @@
-"""Device choice of the port's entry points: CUDA unless the caller asks
-for the CPU, and never a quiet fall back to the CPU."""
+"""Device choice of the port's entry points (CUDA unless the caller asks
+for the CPU, and never a quiet fall back to the CPU), and the divisor that
+keeps a division by a constant a true divide on every device."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["divisor", "resolve_device"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -17,3 +20,19 @@ def resolve_device(device="cuda") -> torch.device:
             "CUDA is not available; pass device='cpu' to run the port on the CPU"
         )
     return device
+
+
+def divisor(value: float, like: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """``value`` as a 0-d ``dtype`` tensor on ``like``'s device.
+
+    Dividing by it is a true IEEE divide on every device, as on the CPU and
+    in eager JAX: CUDA divides a tensor by a Python scalar through its
+    reciprocal. Each constant is filled once per device and kept, so a call
+    costs neither a copy from the host (a wait for the stream) nor a launch."""
+    return _constant(value, dtype, like.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(value, dtype, device) -> torch.Tensor:
+    with torch.inference_mode(False):  # usable outside inference mode too
+        return torch.full((), value, dtype=dtype, device=device)

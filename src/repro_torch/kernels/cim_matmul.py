@@ -26,6 +26,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import divisor
 from repro_torch.kernels import build, ref
 
 __all__ = [
@@ -50,8 +51,7 @@ def cim_matmul_fq_plain(
     partial = torch.einsum(
         "mtr,trn->mtn", x_int.float().reshape(m, t, rows), w_int.float().reshape(t, rows, n)
     )
-    # a tensor divisor keeps the division a true IEEE divide on every device
-    step_t = torch.tensor(step, dtype=torch.float32, device=partial.device)
+    step_t = divisor(step, partial)
     return (torch.round(partial / step_t) * step_t).sum(dim=1)
 
 

@@ -16,8 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.adc import _divisor
 from repro_torch.core.cim_array import plane_weights
+from repro_torch.device import divisor
 
 __all__ = ["adc_quant_ref", "cim_matmul_ref", "fake_quant_step", "flash_attention_ref"]
 
@@ -25,7 +25,7 @@ __all__ = ["adc_quant_ref", "cim_matmul_ref", "fake_quant_step", "flash_attentio
 def adc_quant_ref(v: torch.Tensor, bits: int, vdd: float = 1.0) -> torch.Tensor:
     """Ideal mid-tread ADC + mid-point reconstruction: v -> v_hat."""
     n = 1 << bits
-    codes = torch.clamp(torch.floor(v / _divisor(vdd, v) * n), 0, n - 1)
+    codes = torch.clamp(torch.floor(v / divisor(vdd, v) * n), 0, n - 1)
     return (codes + 0.5) * (vdd / n)
 
 
@@ -65,7 +65,7 @@ def cim_matmul_ref(
         wt = w_int.float().reshape(t, rows, n)
         partial = torch.einsum("mtr,trn->mtn", xt, wt)
         step = fake_quant_step(rows, adc_bits, a_bits, w_bits, a_signed, w_signed)
-        step_t = _divisor(step, partial)
+        step_t = divisor(step, partial)
         return (torch.round(partial / step_t) * step_t).sum(dim=1)
 
     if mode == "bitplane":
@@ -83,7 +83,7 @@ def cim_matmul_ref(
             xp = ((xi >> a) & 1).float().reshape(m, t, rows)
             for b in range(w_bits):
                 wp = ((wi >> b) & 1).float().reshape(t, rows, n)
-                mav = torch.einsum("mtr,trn->mtn", xp, wp) / _divisor(rows, xp)
+                mav = torch.einsum("mtr,trn->mtn", xp, wp) / divisor(rows, xp)
                 codes = torch.clamp(torch.floor(mav * n_codes), 0, n_codes - 1)
                 counts = codes / n_codes * rows  # floor reconstruction
                 if exact_counts:

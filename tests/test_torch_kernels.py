@@ -28,6 +28,7 @@ from repro.kernels.ops import adc_quant_op as j_adc_quant_op
 from repro.kernels.ops import cim_matmul_op as j_cim_matmul_op
 from repro_torch.core import cim_linear as tcl
 from repro_torch.core.cim_array import bit_planes, from_bit_planes, plane_weights
+from repro_torch.device import divisor
 from repro_torch.kernels import adc_quant_op, cim_matmul_op
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.adc_quant import adc_quant
@@ -86,6 +87,22 @@ def test_quantize_symmetric_bit_exact(bits, signed, per_axis):
     xi_j, s_j = jcl.quantize_symmetric(jnp.asarray(x), bits, signed, per_axis=per_axis)
     np.testing.assert_array_equal(xi_t.numpy(), np.asarray(xi_j))
     np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j))
+
+
+@pytest.mark.parametrize("value", [0.8, 10.0, 127.0, 10922.5])
+def test_divisor_is_a_true_divide(value):
+    x = _normal((64, 65), 2) * 50.0
+    d = divisor(value, _t(x))
+    assert d.shape == () and d.dtype == torch.float32 and d.device.type == "cpu"
+    np.testing.assert_array_equal((_t(x) / d).numpy(), x / np.float32(value))
+    assert divisor(127, _t(x), torch.bfloat16).dtype == torch.bfloat16
+    # one kept constant per (value, dtype, device), made in inference mode and
+    # still usable where autograd saves it
+    with torch.inference_mode():
+        assert divisor(value, _t(x)) is d
+    w = torch.ones(3, requires_grad=True)
+    (w / divisor(value, w)).sum().backward()
+    np.testing.assert_array_equal(w.grad.numpy(), np.float32(1.0) / np.full(3, value, np.float32))
 
 
 # ---------------------------------------------------------------------------
