@@ -16,10 +16,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    ADC) must be bit-exact (``torch.equal``), and K3 at the chip geometry
    (rows 16, 5-bit ADC, 4/4 bits) must equal the integer matmul less half
    the plane weight of every saturated plane pair (a 5-bit code cannot hold
-   a full 16-row count). Each kernel's median time, its plain version's
-   time, its bound at H100 peaks and, for K2, the time of
-   ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick the
-   port never calls) are printed;
+   a full 16-row count). K1's edge shapes include M 1, 8 and 65 around its
+   cluster split (M <= 64), a tile count the split does not divide,
+   saturating operands and rows 256; K2 runs every case with float32 and
+   with bf16 k/v, which pick its CUDA-core and its tensor-core kernel. Each
+   kernel's median device time (launches queued behind a device sleep, so
+   the host's launch rate is not timed), its plain version's time, its
+   bound at H100 peaks and, for K2, the times of
+   ``torch.nn.functional.scaled_dot_product_attention`` in float32 (the same
+   function) and in bf16 (yardsticks the port never calls) are printed;
 4. serve phase: ``serve_batch`` on smollm-135m at full width (30 layers,
    d 576, vocab 49152, bf16) with ``fake_quant`` CiM linears and flash
    prefill, batch 4, prompt 256, 16 generated tokens, random weights from a
@@ -74,6 +79,8 @@ INT8_OPS = 1979e12
 BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
 
+SLEEP_CYCLES = 1 << 25  # ~17 ms of device sleep ahead of each timed batch
+
 # K1 shapes of one layer's seven linears (K, N): q, k, v, o, gate, up, down.
 LAYER_LINEARS = [(576, 576), (576, 192), (576, 192), (576, 576), (576, 1536), (576, 1536), (1536, 576)]
 
@@ -86,9 +93,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, batches: int = 7, iters: int = 20) -> float:
-    """Median over ``batches`` of the mean time of ``iters`` launches
-    (CUDA events), after a warm-up."""
+def time_ms(fn, batches: int = 7, iters: int = 20, queued: bool = True) -> float:
+    """Median over ``batches`` of the mean time of ``iters`` launches (CUDA
+    events), after a warm-up. ``queued``: each batch is enqueued behind a
+    ~17 ms sleep of the device, so the events time the device's work back to
+    back and not the host's launch rate (a kernel of a few microseconds is
+    otherwise timed by its Python wrapper). ``queued=False`` times the calls
+    as the host paces them, wrapper included."""
     import torch
 
     for _ in range(3):
@@ -96,6 +107,8 @@ def time_ms(fn, batches: int = 7, iters: int = 20) -> float:
     torch.cuda.synchronize()
     times = []
     for _ in range(batches):
+        if queued:
+            torch.cuda._sleep(SLEEP_CYCLES)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(iters):
@@ -132,13 +145,33 @@ def kernel_phase_k1(torch, cmm, ref):
     gen = torch.Generator(device="cuda").manual_seed(1)
     rand8 = lambda *shape: torch.randint(-128, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
     max_err = 0.0
-    # edge shapes: ragged M/N, rows 64 / adc 6, rows 10 (tiles padded to whole words)
-    for m, k, n, rows, adc in [(77, 112, 45, 16, 5), (130, 192, 70, 64, 6), (33, 40, 17, 10, 5)]:
+
+    def saturating(m, k, n):  # rows of x and columns of w all -128 or all 127: |q| = 24 every tile
+        x = torch.where(torch.arange(m, device="cuda")[:, None] % 2 == 0, -128, 127).expand(m, k)
+        w = torch.where(torch.arange(n, device="cuda")[None, :] % 3 == 0, 127, -128).expand(k, n)
+        return x.to(torch.int8).contiguous(), w.to(torch.int8).contiguous()
+
+    # edge shapes: ragged M/N, rows 64 / adc 6, rows 10 (tiles padded to 16 rows); M 1, 8 and 65
+    # around the cluster split (M <= 64); 37 tiles, a count the split of 8 does not divide;
+    # saturating operands at K 256, so the thresholds' ends are reached (float32 sum exact);
+    # rows 256, whose tile dots reach 2^22 (the kernel's wide path)
+    for m, k, n, rows, adc, sat in [(77, 112, 45, 16, 5, False), (130, 192, 70, 64, 6, False),
+                                    (40, 1024, 48, 256, 8, False),
+                                    (33, 40, 17, 10, 5, False), (1, 576, 192, 16, 5, False),
+                                    (8, 576, 576, 16, 5, False), (65, 576, 192, 16, 5, False),
+                                    (4, 16 * 37, 576, 16, 5, False), (64, 256, 96, 16, 5, True)]:
         step = ref.fake_quant_step(rows, adc, 8, 8, True, True)
-        x, w = rand8(m, k), rand8(k, n)
-        y, y_plain = cmm.cim_matmul_fq(x, w, rows=rows, step=step), cmm.cim_matmul_fq_plain(x, w, rows=rows, step=step)
+        x, w = saturating(m, k, n) if sat else (rand8(m, k), rand8(k, n))
+        run = lambda: cmm.cim_matmul_fq(x, w, rows=rows, step=step)
+        y, y_plain = run(), cmm.cim_matmul_fq_plain(x, w, rows=rows, step=step)
         if not torch.equal(y, y_plain):
             raise AssertionError(f"K1 differs from its plain version at M{m} K{k} N{n} rows {rows}")
+        if sat and float(y.abs().max()) != 24 * (k // rows) * step:
+            raise AssertionError(f"K1 saturating operands at K{k} did not reach the table's ends")
+        split = cmm.fq_cluster_size(m, k // rows)
+        print(f"[k1] edge M{m} K{k} N{n} rows {rows} adc {adc}{' saturating' if sat else ''}: kernel "
+              f"{time_ms(run):.4f} ms, cluster split {'ran, ' + str(split) + ' CTAs' if split > 1 else 'not used'}, "
+              f"bit-exact")
     step = ref.fake_quant_step(16, 5, 8, 8, True, True)  # the default CiMConfig
     per_shape = {}
     for m in (1024, 4):
@@ -153,15 +186,19 @@ def kernel_phase_k1(torch, cmm, ref):
                 raise AssertionError(f"K1 is not bit-exact to its plain version at M{m} K{k} N{n}: {err}")
             max_err = max(max_err, err)
             n_bytes = m * k + k * n + 4 * m * n  # int8 operands in, float32 out
-            b_ms, b_by = bound(n_bytes, 2 * m * k * n, INT8_OPS)
-            per_shape[(m, k, n)] = (time_ms(run), time_ms(plain), b_ms, n_bytes / HBM_BPS * 1e3,
-                                    2 * m * k * n / INT8_OPS * 1e3)
+            # the tile dots on the int8 tensor cores and one fp32 multiply-add per
+            # (output, tile) conversion on the CUDA cores: two pipes at once, so the larger
+            t_ops = max(2 * m * k * n / INT8_OPS, 2 * m * n * (k // 16) / FP32_FLOPS) * 1e3
+            t_bytes = n_bytes / HBM_BPS * 1e3
+            per_shape[(m, k, n)] = (time_ms(run), time_ms(plain), t_bytes, t_ops)
             ms, pms = per_shape[(m, k, n)][:2]
+            split = cmm.fq_cluster_size(m, k // 16)
             print(f"[k1] M{m} K{k} N{n}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-                  f"bound {b_ms:.5f} ms ({b_by}), bit-exact")
-    # the JSON entry: one prefill layer's seven linears at M = 1024
+                  f"bound {max(t_bytes, t_ops):.5f} ms ({'bytes' if t_bytes >= t_ops else 'operations'}), "
+                  f"cluster split {'ran, ' + str(split) + ' CTAs' if split > 1 else 'not used'}, bit-exact")
+    # the JSON entry: one prefill layer's seven linears at M 1024, and one decode layer's at M 4
     layer = [per_shape[(1024, k, n)] for k, n in LAYER_LINEARS]
-    t_bytes, t_ops = sum(s[3] for s in layer), sum(s[4] for s in layer)
+    t_bytes, t_ops = sum(s[2] for s in layer), sum(s[3] for s in layer)
     entry = {
         "name": "cim_matmul_fq",
         "route": "cuda",
@@ -174,9 +211,11 @@ def kernel_phase_k1(torch, cmm, ref):
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,
+        "decode_ms": sum(per_shape[(4, k, n)][0] for k, n in LAYER_LINEARS),
     }
     print(f"[k1] one prefill layer (7 linears, M 1024): kernel {entry['ms']:.4f} ms, "
-          f"plain {entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.5f} ms ({entry['bound_by']})")
+          f"plain {entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.5f} ms ({entry['bound_by']}); "
+          f"one decode layer (7 linears, M 4): kernel {entry['decode_ms']:.4f} ms")
     return entry
 
 
@@ -185,6 +224,7 @@ def kernel_phase_k2(torch, fa, ref):
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     randn = lambda *shape, dt=torch.float32: torch.randn(shape, generator=gen, device="cuda").to(dt)
+    bf16 = torch.bfloat16
     max_err = 0.0
 
     def check(q, k, v, tol, pos=None, causal=True, sm_scale=None, rows=None):
@@ -204,38 +244,47 @@ def kernel_phase_k2(torch, fa, ref):
                 f"{e_ref:.3g} vs fp32 reference, tolerance {tol}"
             )
         max_err = max(max_err, e_plain, e_ref)
-        print(f"[k2] q{tuple(q.shape)} k{tuple(k.shape)} {q.dtype}/{k.dtype} causal={causal}: "
-              f"max-abs {e_plain:.3g} vs plain, {e_ref:.3g} vs fp32 reference (tol {tol})")
+        print(f"[k2] {fa.kernel_variant(k.dtype)} q{tuple(q.shape)} k{tuple(k.shape)} {q.dtype}/{k.dtype} "
+              f"causal={causal}{'' if pos is None else ' (query shard)'}: max-abs {e_plain:.3g} vs plain, "
+              f"{e_ref:.3g} vs fp32 reference (tol {tol})")
 
     b, h, kv, s, hd = 4, 9, 3, 256, 64
     # the serving path: q pre-scaled in float32, k/v bf16, sm_scale 1
     q_main = randn(b, h, s, hd) * hd ** -0.5
-    k_main, v_main = randn(b, kv, s, hd, dt=torch.bfloat16), randn(b, kv, s, hd, dt=torch.bfloat16)
+    k_main, v_main = randn(b, kv, s, hd, dt=bf16), randn(b, kv, s, hd, dt=bf16)
     check(q_main, k_main, v_main, 1e-5, sm_scale=1.0)
-    check(randn(b, h, s, hd, dt=torch.bfloat16), k_main, v_main, 2e-2)
+    check(randn(b, h, s, hd, dt=bf16), k_main, v_main, 2e-2)
     check(randn(b, h, s, hd), randn(b, kv, s, hd), randn(b, kv, s, hd), 1e-5)
-    # absolute q positions: a query shard against the full K/V
-    q_full, k32, v32 = randn(b, h, s, hd), randn(b, kv, s, hd), randn(b, kv, s, hd)
+    # absolute q positions: a query shard against the full K/V, with float32 and bf16 k/v
+    q_full = randn(b, h, s, hd)
     pos = torch.arange(128, 256, dtype=torch.int32, device="cuda")
-    check(q_full[:, :, 128:].contiguous(), k32, v32, 1e-5, pos=pos, rows=q_full)
-    # the JAX package's test shapes, and a head dim the kernel pads (80 -> 128)
+    for dt in (torch.float32, bf16):
+        k_s, v_s = randn(b, kv, s, hd, dt=dt), randn(b, kv, s, hd, dt=dt)
+        check(q_full[:, :, 128:].contiguous(), k_s, v_s, 1e-5, pos=pos, rows=q_full)
+    # the JAX package's test shapes (Sq 128 with Sk 384, non-causal, head_dim 32 and 128),
+    # a head dim the kernel pads (80 -> 128), GQA ratios 1, 2, 4 and 8; float32 and bf16 k/v
     for bb, hh, kk, sq, sk, d, causal in [(2, 4, 2, 256, 256, 64, True), (1, 8, 8, 128, 384, 32, True),
                                            (2, 4, 1, 256, 256, 64, False), (1, 2, 2, 512, 512, 128, True),
-                                           (1, 4, 2, 128, 128, 80, True)]:
-        check(randn(bb, hh, sq, d), randn(bb, kk, sk, d), randn(bb, kk, sk, d), 1e-5, causal=causal)
+                                           (1, 4, 2, 128, 128, 80, True), (1, 8, 1, 256, 256, 64, True)]:
+        for dt in (torch.float32, bf16):
+            check(randn(bb, hh, sq, d), randn(bb, kk, sk, d, dt=dt), randn(bb, kk, sk, d, dt=dt), 1e-5, causal=causal)
+
+    def sdpa(qx, kx, vx):  # one library call on the same inputs (a yardstick the port never calls)
+        try:
+            F.scaled_dot_product_attention(qx, kx, vx, is_causal=True, scale=1.0, enable_gqa=True)
+            return lambda: F.scaled_dot_product_attention(qx, kx, vx, is_causal=True, scale=1.0, enable_gqa=True)
+        except TypeError:  # a torch without enable_gqa: expand the KV heads outside the timing
+            k_rep, v_rep = (t.repeat_interleave(h // kv, dim=1) for t in (kx, vx))
+            return lambda: F.scaled_dot_product_attention(qx, k_rep, v_rep, is_causal=True, scale=1.0)
 
     run = lambda: fa.flash_attention(q_main, k_main, v_main, sm_scale=1.0)
     plain = lambda: fa.flash_attention_plain(q_main, k_main, v_main, sm_scale=1.0)
-    q_lib = q_main.to(torch.bfloat16)
-    try:
-        F.scaled_dot_product_attention(q_lib, k_main, v_main, is_causal=True, scale=1.0, enable_gqa=True)
-        lib = lambda: F.scaled_dot_product_attention(q_lib, k_main, v_main, is_causal=True, scale=1.0, enable_gqa=True)
-    except TypeError:  # a torch without enable_gqa: expand the KV heads outside the timing
-        k_rep, v_rep = (t.repeat_interleave(h // kv, dim=1) for t in (k_main, v_main))
-        lib = lambda: F.scaled_dot_product_attention(q_lib, k_rep, v_rep, is_causal=True, scale=1.0)
+    lib_bf16 = sdpa(q_main.to(bf16), k_main, v_main)
+    lib_f32 = sdpa(q_main, k_main.float(), v_main.float())  # the same function: k/v upcast outside the timing
     pairs = b * h * s * (s + 1) // 2  # causal (query, key) pairs this input needs
     n_bytes = q_main.numel() * 4 + 2 * k_main.numel() * 2 + q_main.numel() * 4
-    b_ms, b_by = bound(n_bytes, 4 * hd * pairs, FP32_FLOPS)  # q and the output are float32
+    # float32 accuracy on the bf16 tensor cores: three passes for q.k^T, three for p.v
+    b_ms, b_by = bound(n_bytes, 6 * 2 * hd * pairs, BF16_FLOPS)
     entry = {
         "name": "flash_attention",
         "route": "cuda",
@@ -247,11 +296,13 @@ def kernel_phase_k2(torch, fa, ref):
         "plain_ms": time_ms(plain),
         "bound_ms": b_ms,
         "bound_by": b_by,
-        "library_ms": time_ms(lib),
+        "library_ms": time_ms(lib_f32),
+        "library_bf16_ms": time_ms(lib_bf16),
     }
-    print(f"[k2] serving shape B{b} H{h} KV{kv} S{s} hd{hd} (q f32, k/v bf16): kernel {entry['ms']:.4f} ms, "
-          f"plain {entry['plain_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
-          f"scaled_dot_product_attention (bf16) {entry['library_ms']:.4f} ms")
+    print(f"[k2] serving shape B{b} H{h} KV{kv} S{s} hd{hd} (q f32, k/v bf16, {fa.kernel_variant(bf16)}): "
+          f"kernel {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
+          f"scaled_dot_product_attention float32 {entry['library_ms']:.4f} ms, "
+          f"bf16 {entry['library_bf16_ms']:.4f} ms")
     return entry
 
 
@@ -550,6 +601,10 @@ def profile_phase(torch, cfg, st, out):
           f"{prof_out['prefill_s'] + prof_out['decode_s']:.4f} s; {sum(e.count for e in kernels)} kernel launches")
     for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
         print(f"[profile]   {dev_us(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+    for name, tag in (("K1", "cim_fq_kernel"), ("K2", "flash_")):
+        mine = [e for e in kernels if tag in e.key]
+        print(f"[profile] {name} ({tag}*): {sum(dev_us(e) for e in mine) / 1e3:.3f} ms device, "
+              f"{sum(e.count for e in mine)} launches")
 
 
 def agreement_phase(torch, mode="fake_quant"):

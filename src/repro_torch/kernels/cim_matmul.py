@@ -7,8 +7,10 @@ The PyTorch/CUDA counterparts of the two Pallas kernels of
 * fake-quant (``_cim_matmul_kernel_fakequant``): each tile's exact integer
   partial product-sum is quantized with the RMS-equivalent composite step,
   ``round_half_even(partial / step) * step``, and the tiles are summed.
-  :func:`cim_matmul_fq` runs ``csrc/cim_matmul_fq.cu``; ``launches`` counts
-  its launches.
+  :func:`cim_matmul_fq` runs ``csrc/cim_matmul_fq.cu`` (int8 tensor-core
+  tile dots, rounding by the exact thresholds of :func:`fq_thresholds`,
+  split-K over a thread-block cluster at small M, see
+  :func:`fq_cluster_size`); ``launches`` counts its launches.
 * bit-plane (``_cim_matmul_kernel_bitplane``): every (activation plane,
   weight plane) pair of every tile is an MAV digitized by an ideal ADC,
   reconstructed by floor and recombined with signed powers of two.
@@ -22,7 +24,9 @@ tensors; it never falls back from one to the other.
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -30,7 +34,7 @@ from repro_torch.device import divisor
 from repro_torch.kernels import build, ref
 
 __all__ = [
-    "cim_matmul_fq", "cim_matmul_fq_plain", "launches",
+    "cim_matmul_fq", "cim_matmul_fq_plain", "fq_cluster_size", "fq_thresholds", "launches",
     "cim_matmul_bp", "cim_matmul_bp_plain", "bp_launches",
 ]
 
@@ -72,9 +76,64 @@ def _lib():
     lib = build.load("cim_matmul_fq")
     fn = lib.cim_matmul_fq
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
+            + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        )
         fn.restype = ctypes.c_int
     return fn
+
+
+MAX_CLUSTER = 8  # CTAs of one cluster that split an output block's tiles
+MAX_STEPS = 8192  # largest |q| the kernel's threshold table holds (csrc/cim_matmul_fq.cu)
+
+
+def fq_cluster_size(m: int, tiles: int) -> int:
+    """CTAs per cluster among which the kernel splits the CiM tiles of one
+    output block: up to 8 at M <= 64 (decode), where too few output blocks
+    fill the card; 1 (no split) above."""
+    return min(MAX_CLUSTER, tiles) if m <= 64 else 1
+
+
+def fq_thresholds(rows: int, step: float, device) -> torch.Tensor:
+    """The kernel's rounding table for tiles of ``rows`` int8 products:
+    ``thr[i]`` is the least integer p with ``round(fl32(p / step)) >= i - Q - 1``
+    (Q the largest |q| of a tile), with ``INT_MIN``/``INT_MAX`` sentinels, so
+    ``len(thr) == 2 * Q + 4``. Built once per (rows, step, device) on the CPU
+    with the true float32 divide and kept on ``device``."""
+    return _thresholds(rows, float(step), torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _thresholds(rows, step, device) -> torch.Tensor:
+    d = torch.tensor(step, dtype=torch.float32)
+    q = lambda p: torch.round(p.to(torch.float32) / d).to(torch.int64)  # noqa: E731
+    p_max = rows << 14  # |p| <= rows * 128 * 128 for int8 operands
+    q_max = int(q(torch.tensor(p_max)))
+    if q_max > MAX_STEPS:
+        raise ValueError(
+            f"cim_matmul_fq: a tile's quantized dot reaches {q_max} steps; the kernel's "
+            f"threshold table holds {MAX_STEPS} (rows {rows}, step {step})"
+        )
+    # least p with q(p) >= j for j in (-Q, Q], by bisection: q(lo) < j <= q(hi)
+    j = torch.arange(-q_max + 1, q_max + 1, dtype=torch.int64)
+    lo, hi = torch.full_like(j, -p_max), torch.full_like(j, p_max)
+    while bool((hi - lo > 1).any()):
+        mid = (lo + hi) // 2
+        ok = q(mid) >= j
+        hi, lo = torch.where(ok, mid, hi), torch.where(ok, lo, mid)
+    lo_end = torch.full((2,), torch.iinfo(torch.int32).min, dtype=torch.int64)
+    hi_end = torch.full((2,), torch.iinfo(torch.int32).max, dtype=torch.int64)
+    table = torch.cat([lo_end, hi, hi_end]).to(torch.int32)
+    with torch.inference_mode(False):  # usable outside inference mode too
+        return table.to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _reciprocal(step: float) -> float:
+    """fl32(1 / fl32(step)): the multiplier of the kernel's first estimate of a
+    tile's quantized dot (the thresholds then make it exact)."""
+    return float(np.float32(1.0) / np.float32(step))
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor, rows: int, step: float) -> torch.Tensor:
@@ -92,22 +151,23 @@ def _launch(x: torch.Tensor, w: torch.Tensor, rows: int, step: float) -> torch.T
         raise ValueError("cim_matmul_fq: operands must be contiguous")
     m, k = x.shape
     n = w.shape[1]
-    if m == 0 or n == 0 or k == 0 or k % rows:
-        raise ValueError(f"cim_matmul_fq: M={m}, N={n}, K={k} (K a multiple of rows={rows})")
+    if m == 0 or n == 0 or k == 0 or k % rows or not 1 <= rows <= 1024:
+        raise ValueError(f"cim_matmul_fq: M={m}, N={n}, K={k} (K a multiple of rows={rows} <= 1024)")
     t = k // rows
-    rows4 = -(-rows // 4) * 4  # a tile padded to whole int32 words
-    xp = x.reshape(m, t, rows)
-    wp = w.t().reshape(n, t, rows)  # K contiguous for both operands
-    if rows4 != rows:
-        xp = F.pad(xp, (0, rows4 - rows))
-        wp = F.pad(wp, (0, rows4 - rows))
-    kw = t * rows4 // 4
-    xw = xp.contiguous().reshape(m, t * rows4).view(torch.int32)
-    ww = wp.contiguous().reshape(n, t * rows4).view(torch.int32)
+    rows16 = -(-rows // 16) * 16  # a tile padded to whole m16n8k16 steps
+    if rows16 != rows:  # zero rows add nothing to a tile's dot
+        x = F.pad(x.reshape(m, t, rows), (0, rows16 - rows)).reshape(m, t * rows16)
+        w = F.pad(w.reshape(t, rows, n), (0, 0, 0, rows16 - rows)).reshape(t * rows16, n)
+    ldw = -(-n // 16) * 16  # 16-byte rows for cp.async
+    if ldw != n:
+        w = F.pad(w, (0, ldw - n))
+    x, w = (a if a.data_ptr() % 16 == 0 else a.clone() for a in (x, w))
+    thr = fq_thresholds(rows, step, x.device)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     err = _lib()(
-        xw.data_ptr(), ww.data_ptr(), out.data_ptr(), m, n, kw, rows4 // 4,
-        step, torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), w.data_ptr(), thr.data_ptr(), out.data_ptr(), m, n, ldw, t, rows16 // 16,
+        thr.numel(), _reciprocal(step), step, int(rows << 14 >= 1 << 22), fq_cluster_size(m, t),
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err:
         raise RuntimeError(f"cim_matmul_fq: kernel launch failed with CUDA error {err}")

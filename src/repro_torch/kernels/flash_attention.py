@@ -9,15 +9,20 @@ largest position skipped, fp32 statistics and accumulator, output in q's
 dtype.
 
 :func:`flash_attention` keeps ``flash_attention_pallas``'s signature and
-checks. It runs the CUDA kernel (``csrc/flash_attention.cu``, its own 64-query
-by 32-key tiles) on CUDA tensors and :func:`flash_attention_plain` (the same
-algorithm over ``block_q`` by ``block_k`` blocks) on CPU tensors; it never
-falls back from one to the other. ``launches`` counts the kernel's launches.
+checks. It runs the CUDA kernel (``csrc/flash_attention.cu``) on CUDA tensors
+and :func:`flash_attention_plain` (the same algorithm over ``block_q`` by
+``block_k`` blocks) on CPU tensors; it never falls back from one to the other.
+The kernel is chosen by the dtype of k/v before the launch
+(:func:`kernel_variant`): bf16 k/v, as on every serve path, take the
+tensor-core kernel (32-query blocks over 64-key tiles, float32 operands split
+exactly into bf16 pieces); float32 k/v the CUDA-core kernel. ``launches`` counts the
+launches of both.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -25,13 +30,21 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import build
 
-__all__ = ["flash_attention", "flash_attention_plain", "launches"]
+__all__ = ["flash_attention", "flash_attention_plain", "kernel_variant", "launches"]
 
 launches = 0  # kernel launches by flash_attention (plain CPU calls do not count)
 
 _NEG = -1e30
 _KERNEL_HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def kernel_variant(kv_dtype: torch.dtype) -> str:
+    """Which CUDA kernel :func:`flash_attention` launches for k/v of
+    ``kv_dtype``: ``"tensor-core"`` (bf16) or ``"cuda-core"`` (float32)."""
+    if kv_dtype not in _DTYPES:
+        raise TypeError(f"flash_attention: no kernel for k/v of {kv_dtype}")
+    return "tensor-core" if kv_dtype == torch.bfloat16 else "cuda-core"
 
 
 def _check(q, k, v, block_q, block_k):
@@ -118,6 +131,14 @@ def flash_attention(
     return _launch(q, k, v, q_positions, causal, sm_scale)
 
 
+@functools.lru_cache(maxsize=None)
+def _arange(n: int, device: torch.device) -> torch.Tensor:
+    """The default query positions ``0 .. n - 1`` on ``device``, made once per
+    (n, device): a call makes no launch for them."""
+    with torch.inference_mode(False):  # usable outside inference mode too
+        return torch.arange(n, dtype=torch.int32, device=device)
+
+
 def _lib():
     fn = build.load("flash_attention").flash_attention_fwd
     if fn.argtypes is None:
@@ -153,7 +174,7 @@ def _launch(q, k, v, q_positions, causal, sm_scale):
     if sm_scale is None:
         sm_scale = hd ** -0.5
     if q_positions is None:
-        q_positions = torch.arange(sq, dtype=torch.int32, device=dev)
+        q_positions = _arange(sq, dev)
     q_positions = q_positions.to(device=dev, dtype=torch.int32).contiguous()
     if q_positions.shape != (sq,):
         raise ValueError(f"flash_attention: q_positions {tuple(q_positions.shape)} != ({sq},)")

@@ -19,7 +19,7 @@ from repro_torch.launch.serve import ServeSettings, serve_batch
 from repro_torch.models import build_model
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "kernel_times.py"]
 
 
 def _imported_roots(path: Path):
@@ -130,3 +130,13 @@ def test_chip_smoke_fails_without_a_gpu_or_the_repo(tmp_path):
         )
         assert out.returncode != 0
         assert '"ok": true' not in out.stdout
+
+
+def test_kernel_times_fails_without_a_gpu():
+    """The kernel timing script needs a card: here it exits non-zero and
+    prints no numbers."""
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "kernel_times.py")], cwd=ROOT, capture_output=True, text=True, timeout=300
+    )
+    assert out.returncode != 0
+    assert "device_ms" not in out.stdout
