@@ -19,12 +19,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    a full 16-row count). K1's edge shapes include M 1, 8 and 65 around its
    cluster split (M <= 64), a tile count the split does not divide,
    saturating operands and rows 256; K2 runs every case with float32 and
-   with bf16 k/v, which pick its CUDA-core and its tensor-core kernel. Each
+   with bf16 k/v, which pick its CUDA-core and its tensor-core kernel; K3's
+   edge shapes run both of its epilogues (FAST; INT, the IEEE divide, at
+   rows 64 with a 5-bit ADC, rows 10 and rows 24, and with int64 sums at
+   8/8 bits with a 24-bit ADC), both k-steps, M 1, M 65 and its cluster split at M 4, and
+   saturating operands (every plane dot = rows) at the ops defaults and the
+   chip geometry; K4 runs 2-D tiles and flat lengths that are not a multiple
+   of 4 from starts 4, 8 and 12 bytes past a 16-byte boundary. Each
    kernel's median device time (launches queued behind a device sleep, so
    the host's launch rate is not timed), its plain version's time, its
-   bound at H100 peaks and, for K2, the times of
+   bound at H100 peaks (for K3 the function's, and the bound of the
+   algorithm that digitizes every plane pair beside it) and, for K2, the
+   times of
    ``torch.nn.functional.scaled_dot_product_attention`` in float32 (the same
-   function) and in bf16 (yardsticks the port never calls) are printed;
+   function) and in bf16 (yardsticks the port never calls) are printed; K3
+   per prefill layer (7 linears, M 1024) and per decode layer (M 4) at the
+   ops defaults and at the chip geometry;
 4. serve phase: ``serve_batch`` on smollm-135m at full width (30 layers,
    d 576, vocab 49152, bf16) with ``fake_quant`` CiM linears and flash
    prefill, batch 4, prompt 256, 16 generated tokens, random weights from a
@@ -124,6 +134,30 @@ def bound(n_bytes: float, ops: float, rate: float):
     rate and operations over the peak rate of their type."""
     t_bytes, t_ops = n_bytes / HBM_BPS * 1e3, ops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k3_bound(m: int, k: int, n: int, rows: int, adc: int, bits: int):
+    """(bytes ms, function operations ms, algorithm operations ms) of one K3
+    call on uint8 patterns (M, K) and (K, N), float32 out, K counted without
+    the zero rows that pad its last tile. Where rows is a
+    power of two 2^r and adc >= r, a pair's count is its plane dot except at
+    d = rows (read as rows - rows / 2^adc), so the function is the integer
+    matmul less (rows / 2^adc) FX FW per tile, FX and FW the signed 8-bit
+    values of the AND of a tile's patterns: one int8 product per (m, k, n)
+    and per (m, tile, n) on the tensor cores, and the ANDs and one
+    multiply-add per output on the CUDA cores. Elsewhere the function is
+    the algorithm. The algorithm, as the TPU kernel runs it: bits^2 plane
+    dots per (m, k, n) on the int8 tensor cores and one fp32 multiply-add per
+    conversion (bits^2 per (m, tile, n)) on the CUDA cores. Two pipes that
+    run at once: the larger term."""
+    t = -(-k // rows)
+    t_bytes = (m * k + k * n + 4 * m * n) / HBM_BPS * 1e3
+    t_alg = max(2 * bits * bits * m * k * n / INT8_OPS, 2 * bits * bits * m * t * n / FP32_FLOPS) * 1e3
+    r = rows.bit_length() - 1
+    if rows != 1 << r or adc < r:
+        return t_bytes, t_alg, t_alg
+    t_fn = max(2 * (m * k * n + m * t * n) / INT8_OPS, (m * k + k * n + 2 * m * n) / FP32_FLOPS) * 1e3
+    return t_bytes, t_fn, t_alg
 
 
 def saturation_deficit(torch, x_pat, w_pat, rows: int, bits: int):
@@ -313,19 +347,33 @@ def kernel_phase_k3(torch, cmm):
     max_err = 0.0
     pats = lambda shape, bits: torch.randint(0, 1 << bits, shape, generator=gen, device="cuda",
                                              dtype=torch.int32).to(torch.uint8)
-    # edge shapes: ragged M/N; rows 64 with a 5-bit ADC (lossy); rows 10 and
-    # 128 (tiles of one and four words); a_bits != w_bits; unsigned activations
-    for m, k, n, rows, adc, ab, wb, a_signed in [
-        (77, 112, 45, 16, 5, 8, 8, True), (130, 192, 70, 64, 5, 8, 8, True), (33, 40, 17, 10, 5, 8, 8, True),
-        (65, 256, 70, 128, 8, 8, 8, True), (20, 96, 33, 32, 6, 3, 5, True), (50, 128, 40, 16, 5, 4, 4, False),
+    # edge shapes: ragged M/N; rows 64 with a 5-bit ADC (lossy, INT epilogue); rows 10 (tiles
+    # padded to 16, INT); rows 128 and 32 (k-steps of 32); a_bits != w_bits;
+    # unsigned activations; rows 24 with a 20-bit ADC (INT, one plane a side);
+    # 8/8 bits with a 24-bit ADC (int64 sums); M 1 (one m16 fragment), M 65 (a second M block of
+    # one row) and M 4 at K 1536 (the cluster split over 8 CTAs); then saturating operands, every
+    # plane dot = rows, at the ops defaults and the chip geometry
+    ones = lambda shape, v: torch.full(shape, v, dtype=torch.uint8, device="cuda")
+    for m, k, n, rows, adc, ab, wb, a_signed, sat in [
+        (77, 112, 45, 16, 5, 8, 8, True, None), (130, 192, 70, 64, 5, 8, 8, True, None),
+        (33, 40, 17, 10, 5, 8, 8, True, None), (65, 256, 70, 128, 8, 8, 8, True, None),
+        (20, 96, 33, 32, 6, 3, 5, True, None), (50, 128, 40, 16, 5, 4, 4, False, None),
+        (8, 48, 12, 24, 20, 1, 1, False, None), (6, 64, 10, 16, 24, 8, 8, True, None),
+        (1, 576, 192, 16, 5, 4, 4, True, None), (65, 640, 192, 128, 8, 8, 8, True, None),
+        (4, 1536, 576, 128, 8, 8, 8, True, None),
+        (64, 256, 96, 128, 8, 8, 8, True, (255, 127)), (33, 64, 40, 16, 5, 4, 4, True, (15, 15)),
     ]:
         kw = dict(rows=rows, adc_bits=adc, a_bits=ab, w_bits=wb, a_signed=a_signed)
-        x, w = pats((m, k), ab), pats((k, n), wb)
+        x, w = (ones((m, k), sat[0]), ones((k, n), sat[1])) if sat else (pats((m, k), ab), pats((k, n), wb))
         y, y_plain = cmm.cim_matmul_bp(x, w, **kw), cmm.cim_matmul_bp_plain(x, w, **kw)
         max_err = max(max_err, float((y - y_plain).abs().max()))
         if not torch.equal(y, y_plain):
             raise AssertionError(f"K3 differs from its plain version at M{m} K{k} N{n} {kw}")
-    print("[k3] edge shapes (ragged M/N; rows 64 adc 5; rows 10, 128; 3/5 bits; unsigned): bit-exact")
+        if sat and rows == 16 and not torch.equal(y, torch.full_like(y, 15.5 * (k // rows))):
+            raise AssertionError(f"K3 saturating operands at the chip geometry: {float(y[0, 0])}")
+        print(f"[k3] edge M{m} K{k} N{n} rows {rows} adc {adc} {ab}/{wb} bits{' unsigned x' if not a_signed else ''}"
+              f"{' saturating' if sat else ''}: {'FAST' if cmm.bp_fast(rows, adc, ab, wb, k // rows) else 'INT'}"
+              f" epilogue, cluster split {cmm.bp_cluster_size(m, n, k // rows)}, bit-exact")
 
     def quantized(m, k, n, bits):  # the ops' operands: patterns of symmetric-quantized normals
         from repro_torch.core.cim_linear import quantize_symmetric
@@ -358,20 +406,27 @@ def kernel_phase_k3(torch, cmm):
                     if not torch.equal(y, x_int @ w_int - deficit):
                         raise AssertionError(f"K3 at the chip geometry is not the integer matmul at M{m} K{k} N{n}")
                     note += ", = integer matmul"
-                t = -(-k // rows)
-                n_bytes = m * k + k * n + 4 * m * n  # uint8 patterns in, float32 out
-                # the plane dots on the int8 tensor cores and one fp32 multiply-add per
-                # conversion on the CUDA cores: two pipes that run at once, so the larger
-                t_ops = max(2 * bits * bits * m * k * n / INT8_OPS, 2 * bits * bits * m * t * n / FP32_FLOPS) * 1e3
-                t_bytes = n_bytes / HBM_BPS * 1e3
-                per_shape[(label, m, k, n)] = (time_ms(run), time_ms(plain, batches=3, iters=3), t_bytes, t_ops)
-                ms, pms = per_shape[(label, m, k, n)][:2]
+                t_bytes, t_ops, t_alg = k3_bound(m, k, n, rows, adc, bits)
+                plain_ms = time_ms(plain, batches=3, iters=3) if m == 1024 else None
+                per_shape[(label, m, k, n)] = (time_ms(run), plain_ms, t_bytes, t_ops, t_alg)
+                ms = per_shape[(label, m, k, n)][0]
                 print(f"[k3] {label} (rows {rows}, adc {adc}, {bits}/{bits} bits) M{m} K{k} N{n}: kernel {ms:.4f} ms, "
-                      f"plain {pms:.4f} ms, bound {max(t_bytes, t_ops):.5f} ms "
-                      f"({'bytes' if t_bytes >= t_ops else 'operations'}), {note}")
+                      + (f"plain {plain_ms:.4f} ms, " if plain_ms is not None else "")
+                      + f"bound {max(t_bytes, t_ops):.5f} ms ({'bytes' if t_bytes >= t_ops else 'operations'}), "
+                      f"algorithm bound {max(t_bytes, t_alg):.5f} ms, "
+                      f"cluster split {cmm.bp_cluster_size(m, n, kp // rows)}, {note}")
     print(f"[k3] chip geometry: {saturated} outputs held a saturated plane pair (16-row count read as 15.5)")
-    layer = [per_shape[("defaults", 1024, k, n)] for k, n in LAYER_LINEARS]
-    t_bytes, t_ops = sum(s[2] for s in layer), sum(s[3] for s in layer)
+    layers = {}
+    for label in ("defaults", "chip"):
+        for m in (1024, 4):
+            layer = [per_shape[(label, m, k, n)] for k, n in LAYER_LINEARS]
+            t_bytes, t_ops, t_alg = (sum(s[i] for s in layer) for i in (2, 3, 4))
+            layers[(label, m)] = (sum(s[0] for s in layer), max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+                                  None if m == 4 else sum(s[1] for s in layer), max(t_bytes, t_alg))
+            ms, b_ms, b_by, pms, a_ms = layers[(label, m)]
+            print(f"[k3] one {'prefill' if m == 1024 else 'decode'} layer (7 linears, M {m}, {label}): kernel {ms:.4f} ms, "
+                  + (f"plain {pms:.4f} ms, " if pms is not None else "") + f"bound {b_ms:.5f} ms ({b_by}), "
+                  f"{100 * b_ms / ms:.1f}% of it; algorithm bound {a_ms:.5f} ms, {100 * a_ms / ms:.1f}% of it")
     entry = {
         "name": "cim_matmul_bp",
         "route": "cuda",
@@ -379,29 +434,42 @@ def kernel_phase_k3(torch, cmm):
         "replaces": "src/repro/kernels/cim_matmul.py:56",
         "launches": None,
         "max_abs_err": max_err,
-        "ms": sum(s[0] for s in layer),
-        "plain_ms": sum(s[1] for s in layer),
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "ms": layers[("defaults", 1024)][0],
+        "plain_ms": layers[("defaults", 1024)][3],
+        "bound_ms": layers[("defaults", 1024)][1],
+        "bound_by": layers[("defaults", 1024)][2],
         "library_ms": None,
+        "algorithm_bound_ms": layers[("defaults", 1024)][4],
+        "decode_ms": layers[("defaults", 4)][0],
+        "chip_ms": layers[("chip", 1024)][0],
+        "chip_plain_ms": layers[("chip", 1024)][3],
+        "chip_bound_ms": layers[("chip", 1024)][1],
+        "chip_bound_by": layers[("chip", 1024)][2],
+        "chip_algorithm_bound_ms": layers[("chip", 1024)][4],
+        "chip_decode_ms": layers[("chip", 4)][0],
     }
-    print(f"[k3] one prefill layer (7 linears, M 1024, ops defaults): kernel {entry['ms']:.4f} ms, "
-          f"plain {entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.5f} ms ({entry['bound_by']})")
     return entry
 
 
 def kernel_phase_k4(torch, aq):
     gen = torch.Generator(device="cuda").manual_seed(6)
     max_err = 0.0
-    for shape in ((7, 130), (1, 31), (1024, 1024)):
-        v = torch.rand(shape, generator=gen, device="cuda") * 1.4 - 0.2  # under- and over-range too
+    flat = torch.rand((1024 * 1024 + 7,), generator=gen, device="cuda") * 1.4 - 0.2  # under- and over-range too
+    # 2-D tiles; then lengths that are not a multiple of 4 and starts 4, 8, 12 bytes past a
+    # 16-byte boundary (the kernel's scalar head and tail around its float4 body)
+    cases = [(flat[:7 * 130].view(7, 130), "(7, 130)"), (flat[:31].view(1, 31), "(1, 31)"),
+             (flat[:1024 * 1024].view(1024, 1024), "(1024, 1024)")]
+    cases += [(flat[lo:lo + n], f"flat[{lo}:{lo + n}]") for lo, n in ((1, 1024 * 1024 + 3), (2, 9), (3, 1), (1, 2), (0, 7), (3, 6))]
+    for v, name in cases:
         for bits in (3, 5, 8):
             for vdd in (1.0, 0.8):
                 out, out_plain = aq.adc_quant(v, bits=bits, vdd=vdd), aq.adc_quant_plain(v, bits=bits, vdd=vdd)
                 max_err = max(max_err, float((out - out_plain).abs().max()))
                 if not torch.equal(out, out_plain):
-                    raise AssertionError(f"K4 differs from its plain version at {shape}, bits {bits}, vdd {vdd}")
-    print("[k4] shapes (7, 130), (1, 31), (1024, 1024) x bits 3, 5, 8 x vdd 1.0, 0.8: bit-exact")
+                    raise AssertionError(f"K4 differs from its plain version at {name}, bits {bits}, vdd {vdd}")
+    print(f"[k4] {', '.join(name for _, name in cases)} (start offsets {sorted({v.data_ptr() % 16 for v, _ in cases})} "
+          f"bytes mod 16) x bits 3, 5, 8 x vdd 1.0, 0.8: bit-exact")
+    v = cases[2][0]
     run = lambda: aq.adc_quant(v, bits=5, vdd=1.0)
     plain = lambda: aq.adc_quant_plain(v, bits=5, vdd=1.0)
     b_ms, b_by = bound(8 * v.numel(), 5 * v.numel(), FP32_FLOPS)  # float32 in and out

@@ -9,7 +9,9 @@ digitized by an ideal B-bit ADC, ``codes = clip(floor(v / vdd * 2^B), 0,
 
 :func:`adc_quant` runs the CUDA kernel (``csrc/adc_quant.cu``) on CUDA tensors
 and :func:`adc_quant_plain` on CPU tensors; it never falls back from one to
-the other. ``launches`` counts the kernel's launches.
+the other. The kernel streams 16-byte float4s and takes any contiguous float32
+tensor, whatever its length or its start's alignment. ``launches`` counts the
+kernel's launches.
 """
 
 from __future__ import annotations
@@ -64,9 +66,16 @@ def _launch(v: torch.Tensor, bits: int, vdd: float) -> torch.Tensor:
         raise ValueError("adc_quant: the input must be contiguous")
     if not 1 <= bits <= 24:
         raise ValueError(f"adc_quant: the kernel takes 1..24 bits, got {bits}")
-    out = torch.empty_like(v)
     if v.numel() == 0:
-        return out
+        return torch.empty_like(v)
+    # the kernel moves float4s through one index for v and out, so out gets
+    # v's address modulo 16 bytes: a fresh tensor (allocations are aligned),
+    # or for a misaligned v a view a few floats into its own buffer
+    lead = v.data_ptr() % 16 // 4
+    if lead:
+        out = torch.empty(v.numel() + lead, dtype=v.dtype, device=v.device)[lead:].view(v.shape)
+    else:
+        out = torch.empty_like(v)
     # vdd / 2^B rounded once to float32, as JAX rounds the Python float vdd / n
     err = _lib()(
         v.data_ptr(), out.data_ptr(), v.numel(), bits, vdd, vdd / (1 << bits),

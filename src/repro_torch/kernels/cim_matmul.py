@@ -14,8 +14,10 @@ The PyTorch/CUDA counterparts of the two Pallas kernels of
 * bit-plane (``_cim_matmul_kernel_bitplane``): every (activation plane,
   weight plane) pair of every tile is an MAV digitized by an ideal ADC,
   reconstructed by floor and recombined with signed powers of two.
-  :func:`cim_matmul_bp` runs ``csrc/cim_matmul_bp.cu``; ``bp_launches``
-  counts its launches.
+  :func:`cim_matmul_bp` runs ``csrc/cim_matmul_bp.cu`` (plane dots on the
+  int8 tensor cores, exact integer sums of the codes, see :func:`bp_fast`;
+  split-K over a cluster, see :func:`bp_cluster_size`),
+  one launch per call; ``bp_launches`` counts its launches.
 
 Each wrapper runs its CUDA kernel on CUDA tensors and its plain version on CPU
 tensors; it never falls back from one to the other.
@@ -35,7 +37,7 @@ from repro_torch.kernels import build, ref
 
 __all__ = [
     "cim_matmul_fq", "cim_matmul_fq_plain", "fq_cluster_size", "fq_thresholds", "launches",
-    "cim_matmul_bp", "cim_matmul_bp_plain", "bp_launches",
+    "cim_matmul_bp", "cim_matmul_bp_plain", "bp_cluster_size", "bp_fast", "bp_launches",
 ]
 
 launches = 0  # kernel launches by cim_matmul_fq (plain CPU calls do not count)
@@ -210,11 +212,44 @@ def cim_matmul_bp(
     return _launch_bp(x_pat, w_pat, **kw)
 
 
+BP_MAX_CLUSTER = 8  # CTAs of one cluster that split an output block's tiles (csrc/cim_matmul_bp.cu)
+BP_BLOCK = (64, 32)  # output rows and columns per CTA
+BP_SMS = 132  # the H100's SMs
+
+
+def bp_cluster_size(m: int, n: int, tiles: int) -> int:
+    """CTAs per cluster among which K3 splits the CiM tiles of one output
+    block. At M <= 64 (decode) the output blocks are few: enough CTAs for
+    about one per SM, at most 8 and at most the tile count. Above, 1 (no
+    split): the output blocks fill the card, and on the H100 a split cost
+    more than it saved at most prefill shapes."""
+    if m > BP_BLOCK[0]:
+        return 1
+    blocks = -(-n // BP_BLOCK[1])
+    return max(1, min(BP_MAX_CLUSTER, tiles, -(-BP_SMS // blocks)))
+
+
+def bp_fast(rows: int, adc_bits: int, a_bits: int, w_bits: int, tiles: int) -> bool:
+    """Whether K3 takes its FAST epilogue (the fp32 pipes): ``rows`` a power
+    of two 2^r with ``adc_bits >= r`` (the code is the plane dot times
+    2^(B - r), clamped), ``a_bits + w_bits + adc_bits <= 24`` (a tile's sum
+    of signed codes stays an integer below 2^24, exact in float32) and
+    ``tiles * 2^(a_bits + w_bits + adc_bits) < 2^31`` (the totals fit int32).
+    Otherwise it takes its INT epilogue: the plain version's own code, IEEE
+    divide included, summed in int64."""
+    r = rows.bit_length() - 1
+    wide = a_bits + w_bits + adc_bits
+    return rows == 1 << r and adc_bits >= r and wide <= 24 and tiles << wide < 1 << 31
+
+
 def _bp_lib():
     lib = build.load("cim_matmul_bp")
     fn = lib.cim_matmul_bp
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 + [ctypes.c_float] + [ctypes.c_int]
+            + [ctypes.c_void_p]
+        )
         fn.restype = ctypes.c_int
     return fn
 
@@ -241,16 +276,24 @@ def _launch_bp(x, w, *, rows, adc_bits, a_bits, w_bits, a_signed, w_signed):
             f"cim_matmul_bp: the kernel takes 1..8 planes a side, rows <= 1024 and adc_bits <= 24; "
             f"got a_bits={a_bits}, w_bits={w_bits}, rows={rows}, adc_bits={adc_bits}"
         )
-    t, wpt = k // rows, -(-rows // 32)
-    xw = torch.empty((m * t * a_bits * wpt,), dtype=torch.int32, device=x.device)
-    ww = torch.empty((n * t * w_bits * wpt,), dtype=torch.int32, device=x.device)
+    t = k // rows
+    rows16 = -(-rows // 16) * 16  # a tile padded to whole m16n8k16 steps
+    if rows16 != rows:  # zero rows add nothing to a plane dot
+        x = F.pad(x.reshape(m, t, rows), (0, rows16 - rows)).reshape(m, t * rows16)
+        w = F.pad(w.reshape(t, rows, n), (0, 0, 0, rows16 - rows)).reshape(t * rows16, n)
+    ldw = -(-n // 16) * 16  # 16-byte rows for cp.async
+    if ldw != n:
+        w = F.pad(w, (0, ldw - n))
+    x, w = (a if a.data_ptr() % 16 == 0 else a.clone() for a in (x, w))
+    fast = bp_fast(rows, adc_bits, a_bits, w_bits, t)
+    q = 2.0 ** (adc_bits - (rows.bit_length() - 1)) if fast else 0.0
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     err = _bp_lib()(
-        x.data_ptr(), w.data_ptr(), xw.data_ptr(), ww.data_ptr(), out.data_ptr(),
-        m, n, k, rows, a_bits, w_bits, int(a_signed), int(w_signed), adc_bits,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, ldw, t, rows, rows16, a_bits, w_bits,
+        int(a_signed), int(w_signed), adc_bits, int(fast), q,
+        bp_cluster_size(m, n, t), torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err:
         raise RuntimeError(f"cim_matmul_bp: kernel launch failed with CUDA error {err}")
-    bp_launches += 1
+    bp_launches += 1  # one launch per call: the cluster split-K needs no second pass
     return out
