@@ -62,7 +62,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    to the integer matmul times the scales, and one gate linear at the
    prefill's M under ``torch.profiler``;
 9. bit-plane agreement: phase 6 with ``bitplane`` linears;
-10. one JSON line of every kernel with its launches, times and bound, the
+10. ``[prng]``: the threefry PRNG (``repro_torch.core.prng``, plain PyTorch)
+    on the card equal to the CPU (``torch.equal``): keys of seeds 0 and
+    2^31 - 1, ``split`` into 2 and 7, ``fold_in`` over 4096 row ids, and
+    ``bits``, ``uniform`` (default and custom bounds) and ``normal`` over 2^20
+    draws; and both equal to golden ``jax.random`` draws recorded with jax
+    0.9.0 (the card's machine has no JAX);
+11. ``[fabric]``: smollm-135m at full width on one chip's fabric (hybrid,
+    256 arrays): ``map_model`` + ``fabric_report`` of the whole model at
+    tokens 4; ``execute_matmul(fake_quant)`` on one layer's seven linears at
+    M 1024, with the K1 count zeroed before and read after: one launch per
+    32-column tile (162), each output ``torch.equal`` to ``cim_matmul``'s on
+    the card, the layer's device time beside ``cim_matmul``'s (7 launches);
+    the noisy bit-plane ``execute_matmul`` (4/4 bits, rows 16, 5-bit SAR,
+    comparator sigma 0.02, mismatch 0.01, ``PRNGKey(0)``) on q_proj and
+    gate_proj at M 16, outputs and stats equal to the CPU's; noisy
+    ``convert`` in all five modes on 2^20 values and ``measure_transfer``
+    with a mismatch key (its DNL and INL) equal to the CPU's;
+12. ``[serve-fabric]``: phase 4's serve with the one-chip fabric rollup of
+    ``serve --fabric hybrid`` (its validation matmul runs first and prints
+    the ``sequential`` backend); K1 and K2 must launch, and the per-request
+    ``fabric`` dict must be present and finite;
+13. one JSON line of every kernel with its launches, times and bound, the
     card's line again, and the final ``{"ok": true, ...}`` line.
 
 Every number printed stands after the card's name and power limit (phase 1,
@@ -134,6 +155,24 @@ def bound(n_bytes: float, ops: float, rate: float):
     rate and operations over the peak rate of their type."""
     t_bytes, t_ops = n_bytes / HBM_BPS * 1e3, ops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def device_busy(torch, fn):
+    """One call of ``fn`` under ``torch.profiler``: (device busy ms, the sum
+    of its kernels' times; {kernel name: (ms, launches)}). Where the host
+    paces a call (many small launches), CUDA events time the host, and only
+    this reads the device's own time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    by_name = {e.key: (e.self_device_time_total / 1e3, e.count) for e in kernels}
+    return sum(ms for ms, _ in by_name.values()), by_name
 
 
 def k3_bound(m: int, k: int, n: int, rows: int, adc: int, bits: int):
@@ -675,6 +714,260 @@ def profile_phase(torch, cfg, st, out):
               f"{sum(e.count for e in mine)} launches")
 
 
+# Golden draws of jax.random (jax 0.9.0, jax_threefry_partitionable=True), for
+# the card's machine, which has no JAX: key data, uint32 bits, float32 bit
+# patterns, and sums over whole draws (int64, exact).
+JAX_GOLDEN = {
+    "split(PRNGKey(0), 2)": [[1797259609, 2579123966], [928981903, 3453687069]],
+    "fold_in(PRNGKey(0), 5)": [1524306142, 1887795613],
+    "bits(PRNGKey(0), (4,))": [4070199207, 4202968722, 1427181096, 2012915765],
+    "uniform(PRNGKey(0), (4,))": [1064475214, 1064993846, 1051337244, 1055913296],
+    "normal(PRNGKey(0), (8,))": [0x3FCFB2BD, 0x40019DF0, 0xBEDE0017, 0xBDA10222,
+                                 0x3E34512C, 0xBF78DAD7, 0xBEFD97CC, 0x3EFD1F31],
+    "sum of normal(PRNGKey(2**31-1), (2**20,)) bit patterns": 2235555874062106,
+    "sum of fold_in(PRNGKey(0), arange(4096)) words": 17389970515104,
+}
+
+LAYER_NAMES = ["q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj"]
+
+
+def prng_phase(torch):
+    """The threefry PRNG (``repro_torch.core.prng``, plain PyTorch) on the card
+    against the CPU, ``torch.equal``, and both against golden draws of
+    ``jax.random``."""
+    from repro_torch.core import prng
+
+    n = 1 << 20
+    draws = {
+        "PRNGKey(0)": lambda d: prng.PRNGKey(0, d),
+        "PRNGKey(2**31-1)": lambda d: prng.PRNGKey(2**31 - 1, d),
+        "split(PRNGKey(0), 2)": lambda d: prng.split(prng.PRNGKey(0, d), 2),
+        "split(PRNGKey(0), 7)": lambda d: prng.split(prng.PRNGKey(0, d), 7),
+        "fold_in(PRNGKey(0), arange(4096))": lambda d: prng.fold_in(
+            prng.PRNGKey(0, d), torch.arange(4096, device=d, dtype=torch.int32)),
+        "bits(PRNGKey(0), (2**20,))": lambda d: prng.bits(prng.PRNGKey(0, d), (n,)),
+        "uniform(PRNGKey(0), (2**20,))": lambda d: prng.uniform(prng.PRNGKey(0, d), (n,)),
+        "uniform(PRNGKey(1), (2**20,), -0.5, 0.7)": lambda d: prng.uniform(prng.PRNGKey(1, d), (n,), -0.5, 0.7),
+        "normal(PRNGKey(2**31-1), (2**20,))": lambda d: prng.normal(prng.PRNGKey(2**31 - 1, d), (n,)),
+    }
+    got = {}
+    for name, fn in draws.items():
+        card, cpu = fn("cuda"), fn("cpu")
+        if not (card.is_cuda and torch.equal(card.cpu(), cpu)):
+            raise AssertionError(f"prng {name}: the card's draw differs from the CPU's")
+        got[name] = cpu
+    f32_bits = lambda t: t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    key0 = prng.PRNGKey(0)
+    mine = {
+        "split(PRNGKey(0), 2)": got["split(PRNGKey(0), 2)"].tolist(),
+        "fold_in(PRNGKey(0), 5)": prng.fold_in(key0, 5).tolist(),
+        "bits(PRNGKey(0), (4,))": got["bits(PRNGKey(0), (2**20,))"][:4].tolist(),
+        "uniform(PRNGKey(0), (4,))": f32_bits(prng.uniform(key0, (4,))).tolist(),
+        "normal(PRNGKey(0), (8,))": f32_bits(prng.normal(key0, (8,))).tolist(),
+        "sum of normal(PRNGKey(2**31-1), (2**20,)) bit patterns":
+            int(f32_bits(got["normal(PRNGKey(2**31-1), (2**20,))"]).sum()),
+        "sum of fold_in(PRNGKey(0), arange(4096)) words": int(got["fold_in(PRNGKey(0), arange(4096))"].sum()),
+    }
+    for name, want in JAX_GOLDEN.items():
+        if mine[name] != want:
+            raise AssertionError(f"prng {name}: {mine[name]} is not jax.random's {want}")
+    key = prng.PRNGKey(0, "cuda")
+    draw = lambda: prng.normal(key, (n,))  # noqa: E731
+    ms = time_ms(draw, batches=3, iters=5)
+    busy_ms, by_name = device_busy(torch, draw)
+    print(f"[prng] {len(draws)} draws (keys, split 2 and 7, fold_in over 4096 rows, bits, uniform and normal "
+          f"over 2^20) equal on the card and the CPU; {len(JAX_GOLDEN)} golden jax.random draws matched; "
+          f"normal over 2^20 on the card (plain PyTorch): {ms:.3f} ms a call by CUDA events, device busy "
+          f"{busy_ms:.3f} ms over {sum(c for _, c in by_name.values())} kernel launches")
+
+
+def prng_share(torch, prng, call):
+    """How much of ``call``'s time its normal draws take: ``call`` as it
+    runs, against ``call`` replaying the draws recorded from one run of it
+    (the same data, walk and outputs, without the threefry and erf_inv).
+    Returns (host ms, replayed host ms, device busy ms, replayed device busy
+    ms); host times are the better of two synchronized runs."""
+    real = prng.normal_at
+    drawn = []
+
+    def record(key, index):
+        drawn.append(real(key, index))
+        return drawn[-1]
+
+    def replay():
+        it = iter(drawn)
+        prng.normal_at = lambda key, index: next(it)
+        try:
+            return call()
+        finally:
+            prng.normal_at = real
+
+    prng.normal_at = record
+    try:
+        want = call()
+    finally:
+        prng.normal_at = real
+    if not torch.equal(replay(), want):
+        raise AssertionError("prng_share: the replayed draws gave another result")
+
+    def host_ms(fn):
+        best = float("inf")
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, (time.perf_counter() - t0) * 1e3)
+        return best
+
+    return host_ms(call), host_ms(replay), device_busy(torch, call)[0], device_busy(torch, replay)[0]
+
+
+def fabric_phase(torch, cmm):
+    """The one-chip fabric on smollm-135m at full width: the whole model's
+    map and rollup, one layer's seven linears through ``execute_matmul``
+    (``fake_quant``, one K1 launch per 32-column tile, each output equal to
+    ``cim_matmul``'s), the noisy bit-plane executor and the noisy ADC on the
+    card equal to the CPU's."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.core.adc import ADCConfig, convert, dnl_inl, measure_transfer
+    from repro_torch.core.cim_linear import CiMConfig, cim_matmul
+    from repro_torch.fabric import FabricConfig, execute_matmul, fabric_report, map_matmul, map_model
+
+    cfg = get_config("smollm-135m")
+    fb = FabricConfig(mode="hybrid", n_arrays=256)
+    t0 = time.time()
+    rep = fabric_report(map_model(cfg, fb, tokens=4), fb)
+    t = rep["totals"]
+    if len(rep["layers"]) != cfg.n_layers * 7 + 1 or not all(
+            isinstance(v, bool) or (v >= 0 and v < float("inf")) for v in t.values()):
+        raise AssertionError(f"fabric report of smollm-135m: {len(rep['layers'])} layers, totals {t}")
+    print(f"[fabric] map_model + fabric_report, smollm-135m full width, hybrid, {fb.resolved_n_arrays()} arrays, "
+          f"tokens 4 ({time.time() - t0:.2f} s host): {t['tiles']} tiles, {t['conversions']:.6g} conversions, "
+          f"latency {t['latency_s'] * 1e3:.6g} ms, digitization {t['digitization_energy_pj'] / 1e6:.6g} uJ, "
+          f"EMA {t['ema_energy_pj'] / 1e6:.6g} uJ per pass, "
+          f"{'model-resident' if t['model_resident'] else 'reloading'}")
+
+    # one layer's seven linears through the fabric executor, fake_quant (K1 per column tile)
+    cim = CiMConfig(mode="fake_quant", ste=False)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    m = 1024
+    layer = []
+    for name, (k, n) in zip(LAYER_NAMES, LAYER_LINEARS):
+        x = torch.randn((m, k), generator=gen, device="cuda")
+        w = torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5
+        layer.append((name, x, w, map_matmul(name, m, k, n, fb, cim=cim)))
+    tiles = sum(p.n_tiles for *_, p in layer)
+    run_fabric = lambda: [execute_matmul(x, w, fb, cim, placement=p) for _, x, w, p in layer]  # noqa: E731
+    run_direct = lambda: [cim_matmul(x, w, cim) for _, x, w, _ in layer]  # noqa: E731
+    cmm.launches = 0
+    ys = run_fabric()
+    torch.cuda.synchronize()
+    fabric_launches = cmm.launches
+    if fabric_launches != tiles:
+        raise AssertionError(f"execute_matmul(fake_quant) on one layer: {fabric_launches} K1 launches, want {tiles}")
+    for (name, x, w, p), y, y_direct in zip(layer, ys, run_direct()):
+        if not torch.equal(y, y_direct):
+            raise AssertionError(f"execute_matmul(fake_quant) {name} differs from cim_matmul on the card: "
+                                 f"max-abs {float((y - y_direct).abs().max()):.3g}")
+        # the same tiles on the CPU: K1's plain version on the fabric path's own operands
+        y_cpu = execute_matmul(x.cpu(), w.cpu(), fb, cim, placement=p)
+        if not torch.equal(y.cpu(), y_cpu):
+            raise AssertionError(f"execute_matmul(fake_quant) {name} on the card differs from the CPU's "
+                                 f"(K1's plain version per tile): max-abs {float((y.cpu() - y_cpu).abs().max()):.3g}")
+    ms_fabric, ms_direct = time_ms(run_fabric, iters=5), time_ms(run_direct, iters=5)
+    (busy_fabric, by_fabric), (busy_direct, by_direct) = device_busy(torch, run_fabric), device_busy(torch, run_direct)
+    k1_ms = lambda by: sum(ms for name, (ms, _) in by.items() if "cim_fq_kernel" in name)  # noqa: E731
+    print(f"[fabric] execute_matmul(fake_quant) on one layer's 7 linears (M {m}): {fabric_launches} K1 launches "
+          f"(one per 32-column tile), each output equal bit for bit (tolerance 0) to cim_matmul's on the card and to the same tiles through K1's plain version on the CPU. Per layer, fabric against "
+          f"cim_matmul (7 K1 launches): {ms_fabric:.4f} against {ms_direct:.4f} ms by CUDA events (host-paced "
+          f"where the host launches slower than the device runs); device busy {busy_fabric:.4f} against "
+          f"{busy_direct:.4f} ms over {sum(c for _, c in by_fabric.values())} against "
+          f"{sum(c for _, c in by_direct.values())} kernel launches, of which K1 {k1_ms(by_fabric):.4f} against "
+          f"{k1_ms(by_direct):.4f} ms")
+
+    # the noisy bit-plane executor and the noisy ADC: the card against the CPU
+    bp = CiMConfig(mode="bitplane", a_bits=4, w_bits=4, rows=16, adc_bits=5,
+                   comparator_sigma=0.02, ref_mismatch_sigma=0.01, ste=False)
+    quiet = dataclasses.replace(bp, comparator_sigma=0.0, ref_mismatch_sigma=0.0)
+    key = prng.PRNGKey(0)
+    for name, (k, n) in (("q_proj", LAYER_LINEARS[0]), ("gate_proj", LAYER_LINEARS[4])):
+        x = torch.randn((16, k), generator=gen, device="cuda")
+        w = torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5
+        t0 = time.time()
+        y, st = execute_matmul(x, w, fb, bp, key=key.cuda(), return_stats=True)
+        torch.cuda.synchronize()
+        t_card = time.time() - t0
+        t0 = time.time()
+        y_cpu, st_cpu = execute_matmul(x.cpu(), w.cpu(), fb, bp, key=key, return_stats=True)
+        t_cpu = time.time() - t0
+        if not (torch.equal(y.cpu(), y_cpu) and torch.equal(st.conversions.cpu(), st_cpu.conversions)
+                and torch.equal(st.comparisons.cpu(), st_cpu.comparisons)):
+            raise AssertionError(f"noisy bit-plane execute_matmul {name}: the card differs from the CPU")
+        moved = int((y != execute_matmul(x, w, fb, quiet)).sum())
+        print(f"[fabric] noisy bitplane execute_matmul {name} (M 16, K {k}, N {n}; 4/4 bits, rows 16, 5-bit SAR, "
+              f"comparator sigma 0.02, mismatch 0.01, PRNGKey(0)): outputs and stats ({int(st.conversions)} "
+              f"conversions, {int(st.comparisons)} comparisons) equal the CPU's; noise moved {moved} of "
+              f"{y.numel()} outputs; {t_card:.2f} s on the card, {t_cpu:.2f} s on the CPU (host clock)")
+        if name == "q_proj":
+            ms, ms_replay, busy, busy_replay = prng_share(
+                torch, prng, lambda: execute_matmul(x, w, fb, bp, key=key.cuda()))
+            print(f"[fabric] PRNG share of noisy q_proj on the card: {ms:.1f} ms host clock against {ms_replay:.1f} "
+                  f"ms with its normal draws replayed (PRNG {100 * (1 - ms_replay / ms):.1f}%); device busy "
+                  f"{busy:.1f} against {busy_replay:.1f} ms (PRNG {100 * (1 - busy_replay / busy):.1f}%)")
+    v = torch.rand((1 << 20,), generator=gen, device="cuda")
+    for mode in ("sar", "sar_asym", "flash", "hybrid", "ideal"):
+        ac = ADCConfig(mode=mode, comparator_sigma=0.01, ref_mismatch_sigma=0.02)
+        card, cpu = convert(v, ac, key=prng.PRNGKey(5, "cuda")), convert(v.cpu(), ac, key=prng.PRNGKey(5))
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu)):
+            raise AssertionError(f"noisy convert({mode}) on 2^20 values: the card differs from the CPU")
+    ac = ADCConfig(bits=5, comparator_sigma=0.002, ref_mismatch_sigma=0.05)
+    (ramp, codes), (ramp_c, codes_c) = (measure_transfer(ac, key=prng.PRNGKey(3), device=d) for d in ("cuda", "cpu"))
+    (dnl, inl), (dnl_c, inl_c) = dnl_inl(ramp, codes, ac), dnl_inl(ramp_c, codes_c, ac)
+    import numpy as np
+
+    if not (np.array_equal(codes, codes_c) and np.array_equal(dnl, dnl_c, equal_nan=True)
+            and np.array_equal(inl, inl_c, equal_nan=True)):
+        raise AssertionError("measure_transfer with a mismatch key: the card's DNL/INL differ from the CPU's")
+    print(f"[fabric] noisy convert in all 5 modes (2^20 values, comparator sigma 0.01, mismatch 0.02): codes, "
+          f"comparisons and cycles equal the CPU's; measure_transfer with a mismatch key (8192 points): DNL "
+          f"max {np.nanmax(np.abs(dnl)):.4f} LSB, INL max {np.nanmax(np.abs(inl)):.4f} LSB, equal the CPU's")
+    return {"ms": ms_fabric, "direct_ms": ms_direct, "busy_ms": busy_fabric, "direct_busy_ms": busy_direct,
+            "k1_ms": k1_ms(by_fabric), "direct_k1_ms": k1_ms(by_direct), "launches": fabric_launches}
+
+
+def serve_fabric_phase(torch, cmm, fa):
+    """``serve_batch`` with the one-chip fabric rollup (serve ``--fabric
+    hybrid``): the validation matmul, then the fake_quant + flash serve of
+    phase 4 with the per-request fabric cost."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.cim_linear import CiMConfig
+    from repro_torch.fabric import FabricConfig
+    from repro_torch.launch.serve import ServeSettings, fabric_rollup, serve_batch
+
+    cfg = dataclasses.replace(
+        get_config("smollm-135m"), cim=CiMConfig(mode="fake_quant", ste=False), attn_impl="flash"
+    )
+    st = ServeSettings(batch=4, prompt_len=256, gen_len=16, seed=0)
+    cmm.launches = 0
+    fa.launches = 0
+    rollup = fabric_rollup(cfg, FabricConfig(mode="hybrid", n_arrays=256), st.batch, device="cuda")
+    out = serve_batch(cfg, st, device="cuda", fabric_rollup=rollup)
+    launches = {"cim_matmul_fq": cmm.launches, "flash_attention": fa.launches}
+    if launches["cim_matmul_fq"] < cfg.n_layers * 7 * st.gen_len or launches["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"serve --fabric launches {launches}")
+    fab = out.get("fabric")
+    numbers = [v for v in (fab or {}).values() if not isinstance(v, (bool, str))]
+    if (fab is None or fab["exec_backend"] != "sequential" or fab["n_chips"] != 1
+            or not all(0 <= v < float("inf") for v in numbers)):
+        raise AssertionError(f"serve --fabric: fabric dict {fab}")
+    print(f"[serve-fabric] smollm-135m full width, fake_quant + flash, batch {st.batch}, prompt {st.prompt_len}, "
+          f"gen {st.gen_len}, fabric hybrid 256 arrays: prefill {out['prefill_s']:.4f} s, decode "
+          f"{out['decode_tok_s']:.1f} tok/s; launches {launches}; fabric {fab}")
+    return launches
+
+
 def agreement_phase(torch, mode="fake_quant"):
     """Reduced smollm-135m in float32 with ``mode`` CiM linears: the card
     (kernels) against the CPU (plain versions) on the same weights."""
@@ -751,6 +1044,10 @@ def main() -> int:
     k3["launches"], k4["launches"] = ops_launches["cim_matmul_bp"], ops_launches["adc_quant"]
     serve_bp_phase(torch, cmm, fa, aq)
     agreement_phase(torch, mode="bitplane")
+    prng_phase(torch)
+    fabric = fabric_phase(torch, cmm)
+    k1["fabric_layer"] = fabric
+    serve_fabric_phase(torch, cmm, fa)
 
     print(json.dumps({"kernels": [k1, k2, k3, k4]}))
     print(card)

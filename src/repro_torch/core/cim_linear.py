@@ -13,10 +13,11 @@ Modes ported so far:
                      weight-plane × tile) product-sum is an analog MAV digitized
                      by the memory-immersed ADC (``core.adc``, SAR or
                      asymmetric SAR), then recombined with signed powers of
-                     two. Noiseless only: comparator noise and ladder mismatch
-                     wait for the PRNG port (ROADMAP.md, port queue A1). Plain
-                     PyTorch on every device, as the JAX package computes it
-                     in jnp outside its Pallas kernels.
+                     two; with a ``key``, comparator noise per global row and
+                     one ladder mismatch draw per call, equal to the JAX
+                     package's draws (``core.prng``). Plain PyTorch on every
+                     device, as the JAX package computes it in jnp outside
+                     its Pallas kernels.
   * ``fake_quant`` — integer per-tile partial sums passed through the
                      RMS-equivalent composite quantizer. On a CUDA tensor this
                      runs the hand-written fake-quant kernel
@@ -24,7 +25,7 @@ Modes ported so far:
                      plain PyTorch version.
 
 ``int8_dot`` is not ported yet (ROADMAP.md, port queue A10) and raises
-``NotImplementedError``, as does any ADC noise ``key`` (queue A1).
+``NotImplementedError``.
 ``ste=True`` wraps the quantized output in a straight-through estimator
 (``detach``) so the op is trainable.
 """
@@ -37,8 +38,9 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import prng
 from repro_torch.core import search_tree as st
-from repro_torch.core.adc import ADCConfig, _needs_prng, convert
+from repro_torch.core.adc import ADCConfig, convert, make_reference_ladder
 from repro_torch.core.cim_array import bit_planes, plane_weights
 from repro_torch.core.mav_stats import analytic_code_pmf
 from repro_torch.device import divisor
@@ -123,19 +125,21 @@ def _pad_reduction(x_int, w_int, rows):
 def _bitplane_matmul(x_int, w_int, cfg: CiMConfig, key=None, row_offset=0):
     """x_int (M,K) @ w_int (K,N) through per-plane CiM arrays + in-memory ADC.
 
-    ``row_offset`` is the global index of ``x_int``'s first row; it places the
-    per-row comparator noise keys of the noisy ADC, which waits for the PRNG
-    port (any ``key`` raises). Noiseless, the MAV of every (plane_a, plane_w,
-    tile) is digitized by the configured SAR search, reconstructed by floor
-    (the raw code times one LSB) and recombined.
+    The MAV of every (plane_a, plane_w, tile) is digitized by the configured
+    SAR search, reconstructed by floor (the raw code times one LSB) and
+    recombined. ``row_offset`` is the global index of ``x_int``'s first row.
+    With a key, ``split(key)`` gives the ladder's mismatch key (one ladder
+    for the call: the reference DAC is one physical array) and the
+    comparators' key, and row ``i`` draws its comparator noise from
+    ``fold_in(cmp_key, row_offset + i)``: a row's draws depend only on its
+    global index, as in the JAX package (all rows in one batched draw, equal
+    to its ``vmap`` over rows).
 
     Returns (y_int float32 (M,N), CimStats). The recombined sum is exact, and
     so independent of its order, while every partial sum stays below 2^24
     granules of ``rows / 2^adc_bits``; ``comparisons`` is summed in float32 as
     the JAX package sums it (rounded above 2^24).
     """
-    if key is not None:
-        raise _needs_prng("the bitplane ADC's comparator noise and ladder mismatch")
     m, _ = x_int.shape
     n = w_int.shape[1]
     r = cfg.rows
@@ -153,7 +157,16 @@ def _bitplane_matmul(x_int, w_int, cfg: CiMConfig, key=None, row_offset=0):
     mav.add_(0.5 / (1 << cfg.adc_bits))
 
     adc_cfg = cfg.adc_config()
-    res = convert(mav, adc_cfg, tree=cfg.search_tree())
+    if key is None:
+        res = convert(mav, adc_cfg, tree=cfg.search_tree())
+    else:
+        mismatch_key, cmp_key = prng.split(prng.as_key(key, mav.device)).unbind(-2)
+        ladder = make_reference_ladder(adc_cfg, mismatch_key, device=mav.device)
+        row_ids = torch.as_tensor(row_offset, dtype=torch.int64, device=mav.device) + torch.arange(
+            m, dtype=torch.int64, device=mav.device
+        )
+        row_keys = prng.fold_in(cmp_key, row_ids)  # (M, 2): row i of mav is axis 2
+        res = convert(mav, adc_cfg, key=row_keys, tree=cfg.search_tree(), ladder=ladder, key_axis=2)
     conversions = mav.numel()
     del mav
     # floor reconstruction: digital output is the raw code scaled by one LSB,
@@ -213,12 +226,11 @@ def cim_matmul(
     """``y = x @ w`` through the CiM pipeline.
 
     ``x``: (..., K); ``w``: (K, N). Leading dims of x are flattened. ``key``
-    (ADC noise) waits for the PRNG port and must be None.
+    (a ``core.prng`` key) draws the bit-plane ADC's noise; ``fake_quant``
+    and ``exact`` ignore it, as in the JAX package.
     """
     if cfg.mode == "int8_dot":
         raise _not_ported(cfg.mode)
-    if key is not None:
-        raise _needs_prng("the CiM ADC's noise")
     stats = None
     if cfg.mode == "exact":
         y = x @ w
@@ -227,7 +239,7 @@ def cim_matmul(
         xm = x.reshape(-1, x.shape[-1])
         x_int, sx = quantize_symmetric(xm, cfg.a_bits, cfg.a_signed)
         w_int, sw = quantize_symmetric(w, cfg.w_bits, cfg.w_signed, per_axis=-1)
-        y_int, stats = _bitplane_matmul(x_int, w_int, cfg)
+        y_int, stats = _bitplane_matmul(x_int, w_int, cfg, key)
         y = y_int * sx * sw  # sw broadcasts (1, N)
         if cfg.ste:
             y = _ste(y, xm, w)

@@ -2,9 +2,9 @@
 the MAV statistics, on the CPU.
 
 Inputs come from numpy with fixed seeds and go through both packages. The
-converters are noiseless (the noisy ones wait for a JAX-compatible PRNG), and
-codes, comparisons and cycles must be equal element for element; the search
-trees' tables must be equal array for array.
+converters here are noiseless (the noisy ones are in
+``test_torch_noisy_adc.py``), and codes, comparisons and cycles must be equal
+element for element; the search trees' tables must be equal array for array.
 """
 
 import jax
@@ -177,7 +177,7 @@ def test_ladder_quantizer_and_transfer_match_jax(bits, vdd, n_ref):
         tadc.dequantize(codes_t, bits, vdd).numpy(), np.asarray(jadc.dequantize(codes_j, bits, vdd))
     )
     ramp_j, st_j = jadc.measure_transfer(cj, n_points=4096)
-    ramp_t, st_t = tadc.measure_transfer(ct, n_points=4096)
+    ramp_t, st_t = tadc.measure_transfer(ct, n_points=4096, device="cpu")
     np.testing.assert_array_equal(ramp_t, ramp_j)
     np.testing.assert_array_equal(st_t, st_j)
     for a, b in zip(jadc.dnl_inl(ramp_j, st_j, cj), tadc.dnl_inl(ramp_t, st_t, ct)):
@@ -186,14 +186,14 @@ def test_ladder_quantizer_and_transfer_match_jax(bits, vdd, n_ref):
 
 def test_dnl_inl_zero_without_mismatch():
     cfg = tadc.ADCConfig(bits=5, mode="sar")
-    r, codes = tadc.measure_transfer(cfg, n_points=1 << 14)
+    r, codes = tadc.measure_transfer(cfg, n_points=1 << 14, device="cpu")
     dnl, inl = tadc.dnl_inl(r, codes, cfg)
     assert np.nanmax(np.abs(dnl)) < 0.05 and np.nanmax(np.abs(inl)) < 0.05
     assert (np.diff(codes) >= 0).all()
 
 
 # ---------------------------------------------------------------------------
-# configuration and the noisy paths that wait for the PRNG
+# configuration and the keys of the noisy paths
 # ---------------------------------------------------------------------------
 
 
@@ -209,14 +209,19 @@ def test_adc_config_validation_matches_jax(kw):
 
 @pytest.mark.parametrize("mode", ["sar", "sar_asym", "flash", "hybrid", "ideal"])
 def test_keys_raise_naming_the_prng_queue(mode):
-    ct = tadc.ADCConfig(mode=mode, comparator_sigma=0.01, ref_mismatch_sigma=0.02)
-    v = torch.from_numpy(_ramp())
-    with pytest.raises(NotImplementedError, match="A1"):
-        tadc.convert(v, ct, key=jax.random.PRNGKey(0))
-    with pytest.raises(NotImplementedError, match="A1"):
-        tadc.make_reference_ladder(ct, key=np.array([0, 1], np.uint32))
-    with pytest.raises(NotImplementedError, match="A1"):
-        tadc.measure_transfer(ct, key=jax.random.PRNGKey(1))
+    """The PRNG queue (A1) is done: a JAX key no longer raises, and the
+    noisy conversion, ladder and transfer equal the JAX package's."""
+    cj, ct = _cfgs(mode=mode, comparator_sigma=0.01, ref_mismatch_sigma=0.02)
+    v = _ramp()
+    _assert_same_result(jadc.convert(jnp.asarray(v), cj, key=jax.random.PRNGKey(0)),
+                        tadc.convert(torch.from_numpy(v), ct, key=jax.random.PRNGKey(0)))
+    np.testing.assert_array_equal(
+        tadc.make_reference_ladder(ct, key=np.array([0, 1], np.uint32)).numpy(),
+        np.asarray(jadc.make_reference_ladder(cj, key=jnp.array([0, 1], jnp.uint32))),
+    )
+    for a, b in zip(jadc.measure_transfer(cj, key=jax.random.PRNGKey(1)),
+                    tadc.measure_transfer(ct, key=jax.random.PRNGKey(1), device="cpu")):
+        np.testing.assert_array_equal(b, a)
 
 
 @pytest.mark.parametrize("mode", ["sar", "flash", "hybrid"])

@@ -45,6 +45,9 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.models.weights, repro_torch.kernels.flash_attention\n"
         "import repro_torch.core.adc, repro_torch.core.search_tree, repro_torch.core.mav_stats\n"
         "import repro_torch.kernels.adc_quant\n"
+        "import repro_torch.core.prng, repro_torch.core.noise, repro_torch.core.energy_area\n"
+        "import repro_torch.core.schedule, repro_torch.core.cim_array\n"
+        "import repro_torch.fabric, repro_torch.fabric.report\n"
         "print('imported')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

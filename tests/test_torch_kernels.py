@@ -294,9 +294,15 @@ def test_cim_matmul_exact_and_unported_modes():
     assert (int(s_t.conversions), int(s_t.comparisons)) == (int(s_j.conversions), int(s_j.comparisons))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcl.cim_matmul(x, w, tcl.CiMConfig(mode="int8_dot"))
-    for mode in ("bitplane", "fake_quant"):  # any ADC noise key waits for the PRNG port
-        with pytest.raises(NotImplementedError, match="A1"):
-            tcl.cim_matmul(x, w, tcl.CiMConfig(mode=mode), key=jax.random.PRNGKey(0))
+    # an ADC noise key draws what the JAX package draws (bitplane) or is
+    # ignored (fake_quant), as in the JAX package
+    noisy = dict(cfg, comparator_sigma=0.02, ref_mismatch_sigma=0.01)
+    key = jax.random.PRNGKey(0)
+    y_t = tcl.cim_matmul(x, w, tcl.CiMConfig(**noisy), key=key)
+    y_j = jcl.cim_matmul(jnp.asarray(x.numpy()), jnp.asarray(w.numpy()), jcl.CiMConfig(**noisy), key=key)
+    np.testing.assert_array_equal(y_t.numpy(), np.asarray(y_j))
+    fq = tcl.CiMConfig(mode="fake_quant")
+    torch.testing.assert_close(tcl.cim_matmul(x, w, fq, key=key), tcl.cim_matmul(x, w, fq), rtol=0, atol=0)
     with pytest.raises(ValueError):
         tcl.CiMConfig(mode="analog")
 
