@@ -25,7 +25,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    8/8 bits with a 24-bit ADC), both k-steps, M 1, M 65 and its cluster split at M 4, and
    saturating operands (every plane dot = rows) at the ops defaults and the
    chip geometry; K4 runs 2-D tiles and flat lengths that are not a multiple
-   of 4 from starts 4, 8 and 12 bytes past a 16-byte boundary. Each
+   of 4 from starts 4, 8 and 12 bytes past a 16-byte boundary. K2 also
+   runs the MoE and hybrid serves' prefill shapes (hd 128 with GQA 8, hd
+   112). Each
    kernel's median device time (launches queued behind a device sleep, so
    the host's launch rate is not timed), its plain version's time, its
    bound at H100 peaks (for K3 the function's, and the bound of the
@@ -40,8 +42,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    prefill, batch 4, prompt 256, 16 generated tokens, random weights from a
    seeded generator, after one short warm-up call. Each kernel's launch
    count is zeroed just before the measured call and read just after: K1
-   must launch >= 30*7*16 times, K2 exactly 30 times; logits must be finite
-   and tokens in [0, vocab);
+   must launch exactly 30*7*16 times, K2 exactly 30 times; logits must be
+   finite and tokens in [0, vocab);
 5. profile: the same serve call under ``torch.profiler`` for the device's
    busy time and the kernels that take the most of it;
 6. agreement: the reduced smollm-135m (float32) on the card against the same
@@ -83,8 +85,35 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``serve --fabric hybrid`` (its validation matmul runs first and prints
     the ``sequential`` backend); K1 and K2 must launch, and the per-request
     ``fabric`` dict must be present and finite;
-13. one JSON line of every kernel with its launches, times and bound, the
-    card's line again, and the final ``{"ok": true, ...}`` line.
+13. ``[serve-moe]``: qwen3-moe-30b-a3b at full width (d 2048, 32/4 heads
+    of 128, 128 experts top 8, d_ff_expert 768, vocab 151936), 8 of its 48
+    layers, bf16 compute, fake_quant + flash, seeded random weights in the
+    JAX init's dtypes; one set of weights served with ``moe_impl="dense"``
+    (batch 4, prompt 256, 16 tokens) and ``"scatter"`` (4 tokens). K1 must
+    launch exactly 32 (dense) or 3,104 (scatter) times a forward, K2 8
+    times at prefill; prefill s, decode tokens/s, peak device memory, and a
+    profile of the dense call;
+14. ``[serve-mamba]``: mamba2-130m at full width and depth (24 layers, d
+    768, 24 SSM heads of 64, state 128), fake_quant, batch 4, prompt 512
+    (two SSD chunks), 16 tokens: K1 exactly 144 a forward, no K2; profiled;
+15. ``[serve-hybrid]``: zamba2-7b at full width (d 3584, 112 SSM heads,
+    state 64, shared block 32 heads of 112, d_ff 14336), 13 of its 81
+    layers (two groups of 6 and one tail layer), fake_quant + flash, batch
+    4, prompt 512, 16 tokens: K1 exactly 92 a forward, K2 2; profiled;
+16. ``[k1-served]``: K1 against its plain version (``torch.equal``) at
+    every (M, K, N) that phases 4 and 13-15 gave it, recorded as they ran:
+    each linear at its full M (prefill batch x prompt, decode batch, an
+    expert's capacity), on random int8 operands; the plain version runs in
+    row blocks, as rows are independent at a fixed step. The shapes named
+    for the new families (N 24, K 7168, expert M 8 and 80) must be among
+    them;
+17. ``[agree-moe]`` (both ``moe_impl``), ``[agree-mamba]``,
+    ``[agree-hybrid]``: phase 6 on the reduced float32 configs, with the
+    routed experts compared first (a differing choice is printed as a
+    routing flip with its probability margin);
+18. one JSON line of every kernel with its launches (from phase 4; per
+    serve path in ``launches_by_path``), times and bound, the card's line
+    again, and the final ``{"ok": true, ...}`` line.
 
 Every number printed stands after the card's name and power limit (phase 1,
 repeated before the last line). It imports nothing of JAX or of the JAX
@@ -93,6 +122,7 @@ package ``repro``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -292,6 +322,58 @@ def kernel_phase_k1(torch, cmm, ref):
     return entry
 
 
+@contextlib.contextmanager
+def k1_recorder(cmm, shapes: dict, path: str):
+    """While open, every K1 launch adds ``path`` to ``shapes[(M, K, N, rows,
+    step)]``: the shapes a serve path gives the kernel, as they run."""
+    real = cmm._launch
+
+    def record(x, w, rows, step):
+        shapes.setdefault((x.shape[0], x.shape[1], w.shape[1], rows, step), set()).add(path)
+        return real(x, w, rows, step)
+
+    cmm._launch = record
+    try:
+        yield
+    finally:
+        cmm._launch = real
+
+
+def k1_served_phase(torch, cmm, shapes: dict) -> float:
+    """K1 against its plain version, ``torch.equal``, at every shape the
+    serve paths gave it (``k1_recorder``), at the full M, on random int8
+    operands. The plain version runs in row blocks whose (rows, T, N)
+    partial dots stay under 1 GiB: rows are independent at a fixed step.
+    Returns the largest |kernel - plain|."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    max_err = 0.0
+    for (m, k, n, rows, step), paths in sorted(shapes.items()):
+        x = torch.randint(-128, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+        w = torch.randint(-128, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+        run = lambda: cmm.cim_matmul_fq(x, w, rows=rows, step=step)  # noqa: E731
+        y = run()
+        block = max(1, (1 << 28) // ((k // rows) * n))
+        y_plain = torch.cat([cmm.cim_matmul_fq_plain(x[i:i + block], w, rows=rows, step=step)
+                             for i in range(0, m, block)])
+        max_err = max(max_err, float((y - y_plain).abs().max()))
+        if not torch.equal(y, y_plain):
+            raise AssertionError(f"K1 differs from its plain version at the served shape M{m} K{k} N{n} "
+                                 f"rows {rows} ({', '.join(sorted(paths))})")
+        split = cmm.fq_cluster_size(m, k // rows)
+        print(f"[k1-served] M{m} K{k} N{n} rows {rows} ({', '.join(sorted(paths))}): kernel "
+              f"{time_ms(run, batches=3, iters=5):.4f} ms, cluster split "
+              f"{'ran, ' + str(split) + ' CTAs' if split > 1 else 'not used'}, bit-exact to the plain version "
+              f"in {-(-m // block)} row blocks")
+    served = {(m, k, n) for m, k, n, *_ in shapes}
+    named = {"N 24": any(n == 24 for _, _, n in served), "K 7168": any(k == 7168 for _, k, _ in served),
+             "expert M 80": any(m == 80 for m, _, _ in served), "expert M 8": any(m == 8 for m, _, _ in served)}
+    if not all(named.values()):
+        raise AssertionError(f"the serve paths gave K1 none of {[s for s, ok in named.items() if not ok]}")
+    print(f"[k1-served] {len(shapes)} served shapes, among them {', '.join(named)}: all bit-exact "
+          f"(max-abs {max_err})")
+    return max_err
+
+
 def kernel_phase_k2(torch, fa, ref):
     import torch.nn.functional as F
 
@@ -336,9 +418,12 @@ def kernel_phase_k2(torch, fa, ref):
         check(q_full[:, :, 128:].contiguous(), k_s, v_s, 1e-5, pos=pos, rows=q_full)
     # the JAX package's test shapes (Sq 128 with Sk 384, non-causal, head_dim 32 and 128),
     # a head dim the kernel pads (80 -> 128), GQA ratios 1, 2, 4 and 8; float32 and bf16 k/v
+    # and the MoE and hybrid serves' prefill shapes: qwen3-moe's hd 128 with GQA 8 (32 / 4 heads),
+    # zamba2-7b's shared block at hd 112 (padded to 128), 32 / 32 heads
     for bb, hh, kk, sq, sk, d, causal in [(2, 4, 2, 256, 256, 64, True), (1, 8, 8, 128, 384, 32, True),
                                            (2, 4, 1, 256, 256, 64, False), (1, 2, 2, 512, 512, 128, True),
-                                           (1, 4, 2, 128, 128, 80, True), (1, 8, 1, 256, 256, 64, True)]:
+                                           (1, 4, 2, 128, 128, 80, True), (1, 8, 1, 256, 256, 64, True),
+                                           (4, 32, 4, 256, 256, 128, True), (4, 32, 32, 512, 512, 112, True)]:
         for dt in (torch.float32, bf16):
             check(randn(bb, hh, sq, d), randn(bb, kk, sk, d, dt=dt), randn(bb, kk, sk, d, dt=dt), 1e-5, causal=causal)
 
@@ -664,28 +749,11 @@ def serve_phase(torch, cmm, fa):
     st = ServeSettings(batch=4, prompt_len=256, gen_len=16, seed=0)
     # warm-up (weights initialized, allocator and libraries loaded), not counted
     serve_batch(cfg, dataclasses.replace(st, gen_len=2), device="cuda")
-    cmm.launches = 0
-    fa.launches = 0
-    out = serve_batch(cfg, st, device="cuda")
-    launches = {"cim_matmul_fq": cmm.launches, "flash_attention": fa.launches}
-    k1_min = cfg.n_layers * 7 * st.gen_len
-    if launches["cim_matmul_fq"] < k1_min or launches["flash_attention"] != cfg.n_layers:
-        raise AssertionError(f"serve launches {launches}: want K1 >= {k1_min}, K2 == {cfg.n_layers}")
-    gen = out["generated"]
-    if gen.shape != (st.batch, st.gen_len) or gen.min() < 0 or gen.max() >= cfg.vocab:
-        raise AssertionError(f"generated tokens out of range or shape: {gen.shape}, [{gen.min()}, {gen.max()}]")
-    logits = out["logits"][..., : cfg.vocab]
-    if not bool(torch.isfinite(logits).all()):
-        raise AssertionError("serve logits are not finite")
-    print(f"[serve] smollm-135m full width, fake_quant + flash, batch {st.batch}, prompt {st.prompt_len}, "
-          f"gen {st.gen_len}: prefill {out['prefill_s']:.4f} s "
-          f"({st.batch * st.prompt_len / out['prefill_s']:.1f} tok/s), decode {out['decode_s']:.4f} s "
-          f"({out['decode_tok_s']:.1f} tok/s); launches {launches}")
-    print(f"[serve] sample generation: {gen[0].tolist()}")
+    launches, out, _ = serve_measured(torch, cmm, fa, "serve", cfg, st, None, 7 * cfg.n_layers, cfg.n_layers)
     return launches, cfg, st, out
 
 
-def profile_phase(torch, cfg, st, out):
+def profile_phase(torch, cfg, st, out, tag="profile", params=None):
     """Where the serve time goes: the same serve call again under
     ``torch.profiler``; device busy time (sum of kernel times) against the
     unprofiled call's wall time, and the kernels that take the most."""
@@ -695,22 +763,22 @@ def profile_phase(torch, cfg, st, out):
     from repro_torch.launch.serve import serve_batch
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        prof_out = serve_batch(cfg, st, device="cuda")
+        prof_out = serve_batch(cfg, st, device="cuda", params=params)
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     dev_us = lambda e: e.self_device_time_total
     busy_s = sum(dev_us(e) for e in kernels) / 1e6
     wall_s = out["prefill_s"] + out["decode_s"]
     if busy_s == 0:
-        print("[profile] the profiler recorded no device time: busy share not measured")
+        print(f"[{tag}] the profiler recorded no device time: busy share not measured")
         return
-    print(f"[profile] serve call: device busy {busy_s:.4f} s of {wall_s:.4f} s wall unprofiled "
+    print(f"[{tag}] serve call: device busy {busy_s:.4f} s of {wall_s:.4f} s wall unprofiled "
           f"({100 * busy_s / wall_s:.1f}% busy); profiled wall "
           f"{prof_out['prefill_s'] + prof_out['decode_s']:.4f} s; {sum(e.count for e in kernels)} kernel launches")
     for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
-        print(f"[profile]   {dev_us(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
-    for name, tag in (("K1", "cim_fq_kernel"), ("K2", "flash_")):
-        mine = [e for e in kernels if tag in e.key]
-        print(f"[profile] {name} ({tag}*): {sum(dev_us(e) for e in mine) / 1e3:.3f} ms device, "
+        print(f"[{tag}]   {dev_us(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+    for name, key in (("K1", "cim_fq_kernel"), ("K2", "flash_")):
+        mine = [e for e in kernels if key in e.key]
+        print(f"[{tag}] {name} ({key}*): {sum(dev_us(e) for e in mine) / 1e3:.3f} ms device, "
               f"{sum(e.count for e in mine)} launches")
 
 
@@ -968,39 +1036,187 @@ def serve_fabric_phase(torch, cmm, fa):
     return launches
 
 
-def agreement_phase(torch, mode="fake_quant"):
-    """Reduced smollm-135m in float32 with ``mode`` CiM linears: the card
-    (kernels) against the CPU (plain versions) on the same weights."""
+def _to(tree, device):
+    return {k: _to(v, device) for k, v in tree.items()} if isinstance(tree, dict) else tree.to(device)
+
+
+def agreement_phase(torch, mode="fake_quant", arch="smollm-135m", tag="agree", **over):
+    """The reduced ``arch`` in float32 with ``mode`` CiM linears and flash
+    prefill: the card (kernels) against the CPU (plain versions) on the same
+    weights, prefill and 3 decode steps. For an MoE arch the routed experts
+    are compared first: a choice that differs is printed as a routing flip,
+    with its token and the probability margin at the k-th place."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.core.cim_linear import CiMConfig
     from repro_torch.models import build_model
+    from repro_torch.models import moe
 
     cfg = dataclasses.replace(
-        reduced(get_config("smollm-135m")), cim=CiMConfig(mode=mode, ste=False), attn_impl="flash"
+        reduced(get_config(arch)), cim=CiMConfig(mode=mode, ste=False), attn_impl="flash", **over
     )
     m_cpu, m_gpu = build_model(cfg, "cpu"), build_model(cfg, "cuda")
     p_cpu = m_cpu.init(torch.Generator().manual_seed(3))
-    p_gpu = {k: ({k2: v2.cuda() for k2, v2 in v.items()} if isinstance(v, dict) else v.cuda())
-             for k, v in p_cpu.items()}
+    p_gpu = _to(p_cpu, "cuda")
     tokens = torch.randint(0, cfg.vocab, (2, 128), generator=torch.Generator().manual_seed(4))
     c_cpu, c_gpu = m_cpu.make_cache(2, 131), m_gpu.make_cache(2, 131)
-    worst = 0.0
-    with torch.inference_mode():
-        l_cpu, c_cpu = m_cpu.prefill(p_cpu, tokens, c_cpu)
-        l_gpu, c_gpu = m_gpu.prefill(p_gpu, tokens.cuda(), c_gpu)
-        for i in range(4):
-            err = float((l_gpu.cpu() - l_cpu).abs().max() / l_cpu.abs().max())
-            worst = max(worst, err)
-            if err > 1e-3:
-                raise AssertionError(f"reduced model: card vs CPU logits differ by {err:.3g} of max at step {i}")
-            if i == 3:
-                break
-            tok = l_cpu[:, -1].argmax(-1).to(torch.int32)
-            l_cpu, c_cpu = m_cpu.decode_step(p_cpu, tok, 128 + i, c_cpu)
-            l_gpu, c_gpu = m_gpu.decode_step(p_gpu, tok.cuda(), 128 + i, c_gpu)
-    tag = "agree" if mode == "fake_quant" else "agree-bp"
-    print(f"[{tag}] reduced smollm-135m f32, {mode} + flash: card vs CPU logits within {worst:.3g} "
-          f"of max|logit| (tol 1e-3), prefill + 3 decode steps")
+    routes = {"cpu": [], "cuda": []}
+    real_route = moe.route
+
+    def record(router, xt, k):
+        out = real_route(router, xt, k)
+        routes[xt.device.type].append(tuple(t.cpu() for t in out))
+        return out
+
+    worst, flips = 0.0, 0
+    moe.route = record
+    try:
+        with torch.inference_mode():
+            l_cpu, c_cpu = m_cpu.prefill(p_cpu, tokens, c_cpu)
+            l_gpu, c_gpu = m_gpu.prefill(p_gpu, tokens.cuda(), c_gpu)
+            for i in range(4):
+                for call, ((probs, _, idx), (_, _, idx_gpu)) in enumerate(zip(routes["cpu"], routes["cuda"])):
+                    for t in (idx != idx_gpu).any(-1).nonzero()[:, 0].tolist():
+                        ranked = probs[t].sort(descending=True).values
+                        margin = float(ranked[cfg.top_k - 1] - ranked[cfg.top_k])
+                        flips += 1
+                        print(f"[{tag}] routing flip at step {i}, router call {call}, token {t}: card "
+                              f"{idx_gpu[t].tolist()}, CPU {idx[t].tolist()}, probability margin {margin:.3g}")
+                routes["cpu"].clear()
+                routes["cuda"].clear()
+                err = float((l_gpu.cpu() - l_cpu).abs().max() / l_cpu.abs().max())
+                worst = max(worst, err)
+                if err > 1e-3:
+                    raise AssertionError(f"reduced {arch}: card vs CPU logits differ by {err:.3g} of max at step {i}")
+                if i == 3:
+                    break
+                tok = l_cpu[:, -1].argmax(-1).to(torch.int32)
+                l_cpu, c_cpu = m_cpu.decode_step(p_cpu, tok, 128 + i, c_cpu)
+                l_gpu, c_gpu = m_gpu.decode_step(p_gpu, tok.cuda(), 128 + i, c_gpu)
+    finally:
+        moe.route = real_route
+    routed = f", {flips} routing flips (moe_impl {cfg.moe_impl})" if cfg.n_experts else ""
+    print(f"[{tag}] reduced {arch} f32, {mode} + flash: card vs CPU logits within {worst:.3g} "
+          f"of max|logit| (tol 1e-3), prefill + 3 decode steps{routed}")
+
+
+def serve_measured(torch, cmm, fa, tag, cfg, st, params, k1_per_forward, k2):
+    """One ``serve_batch`` of ``cfg`` on the card with ``params`` (None: the
+    seeded weights of ``compiled_model``): the K1 and K2 counts zeroed just
+    before and read just after, held to the counts the code gives
+    (``k1_per_forward`` for each of the ``gen_len`` forwards, the prefill
+    and ``gen_len - 1`` decode steps; ``k2`` at prefill); tokens in range
+    and logits finite. Returns (launches, out, peak device GB)."""
+    from repro_torch.launch.serve import serve_batch
+
+    torch.cuda.reset_peak_memory_stats()
+    cmm.launches = fa.launches = 0
+    out = serve_batch(cfg, st, device="cuda", params=params)
+    launches = {"cim_matmul_fq": cmm.launches, "flash_attention": fa.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {"cim_matmul_fq": k1_per_forward * st.gen_len, "flash_attention": k2}
+    if launches != want:
+        raise AssertionError(f"[{tag}] {cfg.name} launches {launches}, want {want}")
+    gen = out["generated"]
+    if gen.shape != (st.batch, st.gen_len) or gen.min() < 0 or gen.max() >= cfg.vocab:
+        raise AssertionError(f"[{tag}] generated tokens out of range or shape: {gen.shape}, [{gen.min()}, {gen.max()}]")
+    if not bool(torch.isfinite(out["logits"][..., : cfg.vocab]).all()):
+        raise AssertionError(f"[{tag}] {cfg.name} logits are not finite")
+    impl = f", moe_impl {cfg.moe_impl}" if cfg.n_experts else ""
+    print(f"[{tag}] {cfg.name}, {cfg.n_layers} layers, fake_quant{' + flash' if k2 else ''}{impl}, batch {st.batch}, "
+          f"prompt {st.prompt_len}, gen {st.gen_len}: prefill {out['prefill_s']:.4f} s "
+          f"({st.batch * st.prompt_len / out['prefill_s']:.1f} tok/s), decode {out['decode_s']:.4f} s "
+          f"({out['decode_tok_s']:.2f} tok/s), peak device memory {peak_gb:.2f} GB; launches {launches} "
+          f"(= {k1_per_forward} K1 per forward x {st.gen_len} forwards, {k2} K2)")
+    print(f"[{tag}] sample generation: {gen[0].tolist()}")
+    return launches, out, peak_gb
+
+
+def init_on_card(torch, tag, cfg):
+    """``cfg``'s seeded random weights on the card; prints their size."""
+    from repro_torch.models import build_model
+
+    t0 = time.time()
+    params = build_model(cfg, "cuda").init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    leaves = []
+    walk = lambda t: [walk(v) for v in t.values()] if isinstance(t, dict) else leaves.append(t)  # noqa: E731
+    walk(params)
+    n = sum(t.numel() for t in leaves)
+    gb = sum(t.numel() * t.element_size() for t in leaves) / 1e9
+    print(f"[{tag}] {cfg.name}: {n / 1e9:.3f} G parameters, {gb:.2f} GB on the card (the JAX init's dtypes: "
+          f"fan-scaled weights float32), initialized in {time.time() - t0:.1f} s")
+    return params
+
+
+def serve_moe_phase(torch, cmm, fa):
+    """qwen3-moe-30b-a3b at full width, 8 of its 48 layers, bf16, fake_quant +
+    flash: one set of weights served with ``moe_impl="dense"`` (the config's
+    default; the experts are plain products, K1 runs attention's 4 linears)
+    and with ``"scatter"`` (capacity dispatch, each expert's 3 linears on K1)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.cim_linear import CiMConfig
+    from repro_torch.launch.serve import ServeSettings, serve_batch
+
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b"), n_layers=8,
+                              cim=CiMConfig(mode="fake_quant", ste=False), attn_impl="flash")
+    assert (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_experts, cfg.top_k, cfg.d_ff_expert,
+            cfg.vocab, cfg.moe_impl, cfg.compute_dtype) == (2048, 32, 4, 128, 128, 8, 768, 151936, "dense", "bfloat16")
+    params = init_on_card(torch, "serve-moe", cfg)
+    st = ServeSettings(batch=4, prompt_len=256, gen_len=16, seed=0)
+    serve_batch(cfg, dataclasses.replace(st, gen_len=2), device="cuda", params=params)  # warm-up
+    dense = serve_measured(torch, cmm, fa, "serve-moe", cfg, st, params, 4 * cfg.n_layers, cfg.n_layers)
+    profile_phase(torch, cfg, st, dense[1], tag="serve-moe", params=params)
+    scfg = dataclasses.replace(cfg, moe_impl="scatter")
+    sst = dataclasses.replace(st, gen_len=4)
+    serve_batch(scfg, dataclasses.replace(sst, gen_len=2), device="cuda", params=params)  # warm-up
+    scatter = serve_measured(torch, cmm, fa, "serve-moe", scfg, sst, params,
+                             (4 + 3 * cfg.n_experts) * cfg.n_layers, cfg.n_layers)
+    del params
+    torch.cuda.empty_cache()
+    return {"dense": dense[0], "scatter": scatter[0]}
+
+
+def serve_mamba_phase(torch, cmm, fa):
+    """mamba2-130m at full width and depth, bf16, fake_quant: six K1 linears
+    a layer, no attention. Prompt 512 is two SSD chunks, so the state carry
+    between chunks runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.cim_linear import CiMConfig
+    from repro_torch.launch.serve import ServeSettings, serve_batch
+
+    cfg = dataclasses.replace(get_config("mamba2-130m"), cim=CiMConfig(mode="fake_quant", ste=False))
+    assert (cfg.n_layers, cfg.d_model, cfg.d_inner, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_chunk,
+            cfg.tie_embeddings, cfg.compute_dtype) == (24, 768, 1536, 24, 64, 128, 256, True, "bfloat16")
+    params = init_on_card(torch, "serve-mamba", cfg)
+    st = ServeSettings(batch=4, prompt_len=512, gen_len=16, seed=0)
+    serve_batch(cfg, dataclasses.replace(st, gen_len=2), device="cuda", params=params)  # warm-up
+    launches, out, _ = serve_measured(torch, cmm, fa, "serve-mamba", cfg, st, params, 6 * cfg.n_layers, 0)
+    profile_phase(torch, cfg, st, out, tag="serve-mamba", params=params)
+    return launches
+
+
+def serve_hybrid_phase(torch, cmm, fa):
+    """zamba2-7b at full width, 13 of its 81 layers (two groups of 6, each
+    followed by the shared block with its own KV cache, and one tail layer),
+    bf16, fake_quant + flash."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.cim_linear import CiMConfig
+    from repro_torch.launch.serve import ServeSettings, serve_batch
+
+    cfg = dataclasses.replace(get_config("zamba2-7b"), n_layers=13,
+                              cim=CiMConfig(mode="fake_quant", ste=False), attn_impl="flash")
+    assert (cfg.d_model, cfg.d_inner, cfg.ssm_heads, cfg.ssm_state, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            cfg.d_ff, cfg.share_period, cfg.compute_dtype) == (3584, 7168, 112, 64, 32, 32, 112, 14336, 6, "bfloat16")
+    params = init_on_card(torch, "serve-hybrid", cfg)
+    st = ServeSettings(batch=4, prompt_len=512, gen_len=16, seed=0)
+    serve_batch(cfg, dataclasses.replace(st, gen_len=2), device="cuda", params=params)  # warm-up
+    groups = cfg.n_layers // cfg.share_period
+    launches, out, _ = serve_measured(torch, cmm, fa, "serve-hybrid", cfg, st, params,
+                                      6 * cfg.n_layers + 7 * groups, groups)
+    profile_phase(torch, cfg, st, out, tag="serve-hybrid", params=params)
+    del params
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -1036,18 +1252,36 @@ def main() -> int:
     k2 = kernel_phase_k2(torch, fa, ref)
     k3 = kernel_phase_k3(torch, cmm)
     k4 = kernel_phase_k4(torch, aq)
-    launches, cfg, st, out = serve_phase(torch, cmm, fa)
+    served = {}  # the K1 shapes of the serve paths, checked in [k1-served]
+    with k1_recorder(cmm, served, "serve"):
+        launches, cfg, st, out = serve_phase(torch, cmm, fa)
     profile_phase(torch, cfg, st, out)
     k1["launches"], k2["launches"] = launches["cim_matmul_fq"], launches["flash_attention"]
     agreement_phase(torch)
     ops_launches = ops_phase(torch, cmm, aq)
     k3["launches"], k4["launches"] = ops_launches["cim_matmul_bp"], ops_launches["adc_quant"]
     serve_bp_phase(torch, cmm, fa, aq)
-    agreement_phase(torch, mode="bitplane")
+    agreement_phase(torch, mode="bitplane", tag="agree-bp")
     prng_phase(torch)
     fabric = fabric_phase(torch, cmm)
     k1["fabric_layer"] = fabric
     serve_fabric_phase(torch, cmm, fa)
+    with k1_recorder(cmm, served, "serve-moe"):
+        moe_launches = serve_moe_phase(torch, cmm, fa)
+    with k1_recorder(cmm, served, "serve-mamba"):
+        mamba_launches = serve_mamba_phase(torch, cmm, fa)
+    with k1_recorder(cmm, served, "serve-hybrid"):
+        hybrid_launches = serve_hybrid_phase(torch, cmm, fa)
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1_served_phase(torch, cmm, served))
+    for impl in ("dense", "scatter"):
+        agreement_phase(torch, arch="qwen3-moe-30b-a3b", tag="agree-moe", moe_impl=impl)
+    agreement_phase(torch, arch="mamba2-130m", tag="agree-mamba")
+    agreement_phase(torch, arch="zamba2-7b", tag="agree-hybrid")
+    paths = {"serve": launches, "serve-moe dense": moe_launches["dense"],
+             "serve-moe scatter": moe_launches["scatter"], "serve-mamba": mamba_launches,
+             "serve-hybrid": hybrid_launches}
+    for entry, name in ((k1, "cim_matmul_fq"), (k2, "flash_attention")):
+        entry["launches_by_path"] = {path: counts[name] for path, counts in paths.items()}
 
     print(json.dumps({"kernels": [k1, k2, k3, k4]}))
     print(card)

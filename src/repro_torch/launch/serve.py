@@ -1,8 +1,12 @@
 """Batched serving of the PyTorch port (counterpart of
-``repro.launch.serve``): one batched prefill, then lock-step greedy decode.
+``repro.launch.serve``): one batched prefill, then lock-step greedy decode,
+for every registered arch (dense and MoE transformers, the Mamba2 stack and
+the Zamba2 hybrid).
 
 Supports the paper's CiM-quantized inference modes: with ``--cim fake_quant``
-every linear runs the CiM fake-quant CUDA kernel; with ``--cim bitplane`` every
+every linear runs the CiM fake-quant CUDA kernel (but the MoE router, and
+the experts of ``moe_impl="dense"``, which are plain products as in the JAX
+package); with ``--cim bitplane`` every
 linear is the faithful bit-plane simulation with the noiseless
 memory-immersed SAR ADC (``core.cim_linear``, plain PyTorch as in the JAX
 package). With ``attn_impl="flash"`` every prefill layer runs the
@@ -16,6 +20,8 @@ the fabric executor as a validation pass, and the rollup's markdown follows.
 CLI::
 
     python -m repro_torch.launch.serve --arch smollm-135m --cim fake_quant
+    python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --reduced --cim fake_quant
+    python -m repro_torch.launch.serve --arch mamba2-130m --cim fake_quant
     python -m repro_torch.launch.serve --arch smollm-135m --cim bitplane
     python -m repro_torch.launch.serve --arch smollm-135m --fabric hybrid --fabric-arrays 60
 

@@ -1,4 +1,5 @@
-"""Model zoo of the PyTorch port: the dense GQA transformer."""
+"""Model zoo of the PyTorch port: the dense and MoE transformers, the Mamba2
+stack and the Zamba2 hybrid."""
 
 from repro_torch.models.model import Model, build_model
 

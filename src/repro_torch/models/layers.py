@@ -42,6 +42,7 @@ __all__ = [
     "embed",
     "unembed_weight",
     "logits_step",
+    "layer_slice",
 ]
 
 
@@ -53,9 +54,24 @@ def pdtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.param_dtype)
 
 
+def layer_slice(tree: dict, i: int) -> dict:
+    """Layer ``i`` of a stacked tree (views, so cache writes land in place)."""
+    return {k: (layer_slice(v, i) if isinstance(v, dict) else v[i]) for k, v in tree.items()}
+
+
 def _normal(gen: torch.Generator, shape, scale: float, dtype: torch.dtype) -> torch.Tensor:
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
     return (x * scale).to(dtype)
+
+
+def _fan_normal(gen: torch.Generator, shape, fan: int, dtype: torch.dtype) -> torch.Tensor:
+    """A ``dtype`` normal draw divided by sqrt(fan), in float32 whatever
+    ``dtype`` is: the JAX package scales its draws by a numpy float64
+    scalar, which JAX does not treat as weakly typed, so its fan-scaled
+    weights are float32 even where ``param_dtype`` is bfloat16."""
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+    x.copy_(x.to(dtype))
+    return x.div_(float(np.sqrt(fan)))
 
 
 # ---------------------------------------------------------------------------
@@ -130,10 +146,10 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, n_layers: int):
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = pdtype(cfg)
     p = {
-        "wq": _normal(gen, (n_layers, d, h * hd), 1.0 / np.sqrt(d), dt),
-        "wk": _normal(gen, (n_layers, d, kv * hd), 1.0 / np.sqrt(d), dt),
-        "wv": _normal(gen, (n_layers, d, kv * hd), 1.0 / np.sqrt(d), dt),
-        "wo": _normal(gen, (n_layers, h * hd, d), 1.0 / np.sqrt(h * hd), dt),
+        "wq": _fan_normal(gen, (n_layers, d, h * hd), d, dt),
+        "wk": _fan_normal(gen, (n_layers, d, kv * hd), d, dt),
+        "wv": _fan_normal(gen, (n_layers, d, kv * hd), d, dt),
+        "wo": _fan_normal(gen, (n_layers, h * hd, d), h * hd, dt),
     }
     if cfg.qkv_bias:
         for name, width in (("bq", h * hd), ("bk", kv * hd), ("bv", kv * hd)):
@@ -329,9 +345,9 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, n_layers: int, d_ff: Option
     d, f = cfg.d_model, d_ff or cfg.d_ff
     dt = pdtype(cfg)
     return {
-        "w_gate": _normal(gen, (n_layers, d, f), 1.0 / np.sqrt(d), dt),
-        "w_up": _normal(gen, (n_layers, d, f), 1.0 / np.sqrt(d), dt),
-        "w_down": _normal(gen, (n_layers, f, d), 1.0 / np.sqrt(f), dt),
+        "w_gate": _fan_normal(gen, (n_layers, d, f), d, dt),
+        "w_up": _fan_normal(gen, (n_layers, d, f), d, dt),
+        "w_down": _fan_normal(gen, (n_layers, f, d), f, dt),
     }
 
 
@@ -352,7 +368,7 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig):
     dt = pdtype(cfg)
     p = {"tok": _normal(gen, (v, d), 0.02, dt)}
     if not cfg.tie_embeddings:
-        p["unembed"] = _normal(gen, (d, v), 1.0 / np.sqrt(d), dt)
+        p["unembed"] = _fan_normal(gen, (d, v), d, dt)
     return p
 
 

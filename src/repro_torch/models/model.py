@@ -1,6 +1,12 @@
 """Unified model API of the PyTorch port: ``build_model(cfg, device)`` ->
 init / make_cache / prefill / decode_step (counterpart of
-``repro.models.model``). Only the dense family is ported so far."""
+``repro.models.model``; training's forward and loss are not ported yet).
+
+Families:
+  * dense / moe  -> ``transformer.py``
+  * mamba        -> the pure Mamba2 stack (here)
+  * hybrid       -> ``zamba2.py``
+"""
 
 from __future__ import annotations
 
@@ -11,7 +17,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models import transformer
+from repro_torch.models import mamba2, transformer, zamba2
 
 __all__ = ["Model", "build_model"]
 
@@ -25,28 +31,95 @@ class Model(NamedTuple):
     decode_step: Callable[..., Any]  # (params, token, pos, cache) -> (logits, cache)
 
 
+# ---------------------------------------------------------------------------
+# Pure Mamba2 stack
+# ---------------------------------------------------------------------------
+
+
+def _init_mamba_lm(gen: torch.Generator, cfg: ModelConfig):
+    dt, dev = L.pdtype(cfg), gen.device
+    return {
+        "embed": L.init_embedding(gen, cfg),
+        "mamba": mamba2.init_mamba(gen, cfg, cfg.n_layers),
+        "ln": torch.zeros((cfg.n_layers, cfg.d_model), dtype=dt, device=dev),
+        "ln_f": torch.zeros((cfg.d_model,), dtype=dt, device=dev),
+    }
+
+
+def _mamba_lm_forward(p, x_in, cfg: ModelConfig, cache, decode=False):
+    """The Mamba2 stack over a prompt (prefill) or one token (decode),
+    filling ``cache`` in place; returns the final-norm hidden states."""
+    if not decode:
+        x = L.embed(p["embed"], x_in, cfg)
+    elif cfg.input_kind == "embeddings":
+        x = x_in[:, None, :].to(L.cdtype(cfg))
+    else:
+        x = L.embed(p["embed"], x_in[:, None], cfg)
+    step = mamba2.mamba_decode_step if decode else mamba2.mamba_forward
+    for i in range(cfg.n_layers):
+        hn = L.rms_norm(x, p["ln"][i], cfg.norm_eps)
+        y, _ = step(L.layer_slice(p["mamba"], i), hn, cfg, L.layer_slice(cache, i))
+        x = x + y
+    return L.rms_norm(x, p["ln_f"], cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# build_model
+# ---------------------------------------------------------------------------
+
+
 def build_model(cfg: ModelConfig, device="cuda") -> Model:
     """The model of ``cfg`` on ``device`` (CUDA unless the caller asks for
     the CPU; raises when CUDA is asked for and absent)."""
     device = resolve_device(device)
-    if cfg.family != "dense" or cfg.n_experts:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to PyTorch yet (ROADMAP.md, port queue A)"
-        )
+    fam = cfg.family
+
+    if fam in ("dense", "moe"):
+        init_fn = transformer.init_transformer
+
+        def make_cache(batch: int, seq_len: int):
+            return L.make_attn_cache(cfg, batch, seq_len, cfg.n_layers, device)
+
+        def prefill(p, x, cache):
+            h, cache = transformer.transformer_prefill(p, x, cfg, cache)
+            return L.logits_step(p["embed"], h[:, -1:, :], cfg), cache
+
+        def decode_step(p, token, pos, cache):
+            return transformer.transformer_decode(p, token, cfg, pos, cache)
+
+    elif fam == "mamba":
+        init_fn = _init_mamba_lm
+
+        def make_cache(batch: int, seq_len: int):
+            return mamba2.make_mamba_state(cfg, batch, cfg.n_layers, device)
+
+        def prefill(p, x, cache):
+            h = _mamba_lm_forward(p, x, cfg, cache)
+            return L.logits_step(p["embed"], h[:, -1:, :], cfg), cache
+
+        def decode_step(p, token, pos, cache):
+            h = _mamba_lm_forward(p, token, cfg, cache, decode=True)
+            return L.logits_step(p["embed"], h, cfg), cache
+
+    elif fam == "hybrid":
+        init_fn = zamba2.init_zamba
+
+        def make_cache(batch: int, seq_len: int):
+            return zamba2.make_zamba_cache(cfg, batch, seq_len, device)
+
+        def prefill(p, x, cache):
+            h, cache = zamba2.zamba_prefill(p, x, cfg, cache)
+            return L.logits_step(p["embed"], h[:, -1:, :], cfg), cache
+
+        def decode_step(p, token, pos, cache):
+            return zamba2.zamba_decode(p, token, cfg, pos, cache)
+
+    else:
+        raise ValueError(f"unknown family {fam!r}")
 
     def init(gen: torch.Generator):
         if gen.device.type != device.type:
             raise ValueError(f"generator on {gen.device}, model on {device}")
-        return transformer.init_transformer(gen, cfg)
-
-    def make_cache(batch: int, seq_len: int):
-        return L.make_attn_cache(cfg, batch, seq_len, cfg.n_layers, device)
-
-    def prefill(p, x, cache):
-        h, cache = transformer.transformer_prefill(p, x, cfg, cache)
-        return L.logits_step(p["embed"], h[:, -1:, :], cfg), cache
-
-    def decode_step(p, token, pos, cache):
-        return transformer.transformer_decode(p, token, cfg, pos, cache)
+        return init_fn(gen, cfg)
 
     return Model(cfg, device, init, make_cache, prefill, decode_step)

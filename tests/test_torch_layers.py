@@ -34,10 +34,10 @@ torch.backends.cudnn.allow_tf32 = False
 B, S = 2, 128
 
 
-def _cfgs(cim=None, **over):
-    """(JAX cfg, port cfg): reduced smollm-135m in float32."""
-    cj = dataclasses.replace(j_reduced(j_get_config("smollm-135m")), **over)
-    ct = dataclasses.replace(reduced(get_config("smollm-135m")), **over)
+def _cfgs(cim=None, arch="smollm-135m", **over):
+    """(JAX cfg, port cfg): the reduced ``arch`` (smollm-135m) in float32."""
+    cj = dataclasses.replace(j_reduced(j_get_config(arch)), **over)
+    ct = dataclasses.replace(reduced(get_config(arch)), **over)
     if cim is not None:
         cj = dataclasses.replace(cj, cim=JCiM(**cim))
         ct = dataclasses.replace(ct, cim=CiMConfig(**cim))
@@ -165,29 +165,47 @@ def test_decode_attention_vs_jax(np_params, int8_kv):
 
 
 @pytest.mark.parametrize(
-    "cim,kv_int8,rel",
+    "arch,cim,kv_int8,rel",
     [
-        (None, False, 1e-5),
-        (dict(mode="fake_quant", ste=False), False, 1e-3),
-        (None, True, 1e-3),
+        ("smollm-135m", None, False, 1e-5),
+        ("smollm-135m", dict(mode="fake_quant", ste=False), False, 1e-3),
+        ("smollm-135m", None, True, 1e-3),
+        ("qwen2.5-32b", None, False, 1e-5),
+        ("qwen2.5-32b", dict(mode="fake_quant", ste=False), False, 1e-3),
+        ("pixtral-12b", None, False, 1e-5),
     ],
-    ids=["exact", "fake_quant", "int8_kv"],
+    ids=["exact", "fake_quant", "int8_kv", "qwen2.5-qkv_bias-exact", "qwen2.5-qkv_bias-fake_quant",
+         "pixtral-embeddings-exact"],
 )
-def test_model_prefill_decode_vs_jax(np_params, cim, kv_int8, rel):
+def test_model_prefill_decode_vs_jax(np_params, arch, cim, kv_int8, rel):
     """Whole reduced model: port (flash prefill) vs JAX (blocked prefill),
-    prefill logits and three decode steps."""
-    cj, _ = _cfgs(cim, kv_quant_int8=kv_int8)
-    _, ct = _cfgs(cim, kv_quant_int8=kv_int8, attn_impl="flash")
+    prefill logits and three decode steps. qwen2.5 carries q/k/v biases
+    (drawn at random here: the init's are zero), pixtral takes embeddings
+    in place of tokens, at prefill and at every decode step."""
+    cj, _ = _cfgs(cim, arch, kv_quant_int8=kv_int8)
+    _, ct = _cfgs(cim, arch, kv_quant_int8=kv_int8, attn_impl="flash")
     mj, mt = j_build_model(cj), build_model(ct, "cpu")
+    rng = np.random.default_rng(7)
+    if arch != "smollm-135m":
+        np_params = jax.tree_util.tree_map(np.array, mj.init(jax.random.PRNGKey(0)))
+        for name in ("bq", "bk", "bv"):
+            if name in np_params["attn"]:
+                np_params["attn"][name] = 0.1 * _normal(np_params["attn"][name].shape, 8 + len(name))
     pt = params_from_jax(np_params, ct, "cpu")
-    tokens = np.random.default_rng(7).integers(0, ct.vocab, (B, S)).astype(np.int32)
+    embeddings = ct.input_kind == "embeddings"
+    if embeddings:
+        inputs = _normal((B, S, ct.d_model), 9)
+    else:
+        inputs = rng.integers(0, ct.vocab, (B, S)).astype(np.int32)
     total = S + 3
-    lj, cache_j = jax.jit(mj.prefill)(np_params, jnp.asarray(tokens), mj.make_cache(B, total))
-    lt, cache_t = mt.prefill(pt, torch.from_numpy(tokens), mt.make_cache(B, total))
+    lj, cache_j = jax.jit(mj.prefill)(np_params, jnp.asarray(inputs), mj.make_cache(B, total))
+    lt, cache_t = mt.prefill(pt, torch.from_numpy(inputs), mt.make_cache(B, total))
     _close(lt, lj, rel)
     decode = jax.jit(mj.decode_step)
     tok = np.asarray(jnp.argmax(lj[:, -1], -1)).astype(np.int32)
     for i in range(3):
+        if embeddings:
+            tok = _normal((B, ct.d_model), 10 + i)
         lj, cache_j = decode(np_params, jnp.asarray(tok), jnp.asarray(S + i, jnp.int32), cache_j)
         lt, cache_t = mt.decode_step(pt, torch.from_numpy(tok), S + i, cache_t)
         _close(lt, lj, rel)

@@ -87,3 +87,30 @@ def test_serve_cli_bitplane_on_cpu(capsys):
     assert "sample generation" in out
     with pytest.raises(SystemExit):
         tserve.main(["--arch", "smollm-135m", "--cim", "analog", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "mamba2-130m", "zamba2-7b"])
+def test_serve_cli_model_families_on_cpu(capsys, arch):
+    """The CLI serves the MoE, Mamba2 and hybrid families (reduced, with
+    ``fake_quant`` linears)."""
+    tserve.main([
+        "--arch", arch, "--reduced", "--batch", "2", "--prompt-len", "8",
+        "--gen-len", "3", "--cim", "fake_quant", "--device", "cpu",
+    ])
+    out = capsys.readouterr().out
+    assert f"[serve] {arch} on cpu: prefill" in out
+    assert "sample generation" in out
+
+
+def test_serve_cli_moe_fabric_on_cpu(capsys):
+    """``--fabric hybrid`` on an MoE arch: the rollup maps the routers and
+    the experts' projections, and the batching line carries the cost."""
+    tserve.main([
+        "--arch", "moonshot-v1-16b-a3b", "--reduced", "--batch", "2", "--prompt-len", "8",
+        "--gen-len", "2", "--fabric", "hybrid", "--fabric-arrays", "60", "--device", "cpu",
+    ])
+    out = capsys.readouterr().out
+    assert "[serve] fabric exec backend: sequential" in out
+    assert "[serve] batch 2x10 tok on 1 chip(s) [sequential]" in out
+    assert "| layer1.router |" in out and "| layer0.expert0.down_proj |" in out
+    assert "[serve] moonshot-v1-16b-a3b on cpu: prefill" in out
