@@ -85,7 +85,33 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``serve --fabric hybrid`` (its validation matmul runs first and prints
     the ``sequential`` backend); K1 and K2 must launch, and the per-request
     ``fabric`` dict must be present and finite;
-13. ``[serve-moe]``: qwen3-moe-30b-a3b at full width (d 2048, 32/4 heads
+13. ``[shard]``: smollm-135m at full width on chip meshes, every chip of a
+    mesh on the card (hybrid, 256 arrays a chip): ``shard_model`` +
+    ``sharded_fabric_report`` of the whole model at tokens 4 on 1x1, 1x4,
+    2x2 and 4x4, held to the analytic plan (no fallback, cross-chip bits
+    (model - 1) M N 24, the one-chip conversion count);
+    ``execute_sharded_matmul(fake_quant)`` on one layer's seven linears at
+    M 1024, the K1 count zeroed before and read after each run: 1x1 (7
+    launches, each output ``torch.equal`` to ``cim_matmul``'s and
+    ``execute_matmul``'s), and 1x4 and 2x2 under the ``sequential`` and
+    ``shard_map`` backends (exactly 7 x chips launches; the backends
+    ``torch.equal``; within atol 1e-4, rtol 1e-5 of 1x1), each layer's
+    device busy time beside ``cim_matmul``'s; the noisy bit-plane executor
+    on q_proj at M 16 on 1x4 and 2x2, its first two column tiles equal to
+    the same call on those 64 columns on the card and on the CPU (outputs
+    and stats);
+14. ``[program]``: ``compile_forward`` of smollm-135m's whole residual
+    chain (121 linears) at full width, tokens 4, fake_quant, on 1x1 and
+    1x4: K1 exactly 121 x chips launches, the collective census (one
+    ``all_gather``, a ``reduce_scatter`` and a ``pmax`` a linear, two
+    ``psum``), the fused forward ``torch.equal`` to the per-layer loop on
+    1x1 and within atol 1e-5, rtol 1e-6 of it on 1x4; ``measure_forward``'s
+    fused, collectives-stripped and per-layer seconds;
+15. ``[serve-shard]``: ``serve.main`` on smollm-135m with ``--fabric hybrid
+    --fabric-chips 4 --fabric-backend shard_map`` and on mamba2-130m with
+    ``--fabric-mesh 1x2 --fabric-program`` (fake_quant, batch 4, prompt 256,
+    16 tokens): backend ``shard_map``, prefill s, decode tokens/s;
+16. ``[serve-moe]``: qwen3-moe-30b-a3b at full width (d 2048, 32/4 heads
     of 128, 128 experts top 8, d_ff_expert 768, vocab 151936), 8 of its 48
     layers, bf16 compute, fake_quant + flash, seeded random weights in the
     JAX init's dtypes; one set of weights served with ``moe_impl="dense"``
@@ -93,27 +119,29 @@ Phases, in order; any failure raises and the script exits non-zero:
     launch exactly 32 (dense) or 3,104 (scatter) times a forward, K2 8
     times at prefill; prefill s, decode tokens/s, peak device memory, and a
     profile of the dense call;
-14. ``[serve-mamba]``: mamba2-130m at full width and depth (24 layers, d
+17. ``[serve-mamba]``: mamba2-130m at full width and depth (24 layers, d
     768, 24 SSM heads of 64, state 128), fake_quant, batch 4, prompt 512
     (two SSD chunks), 16 tokens: K1 exactly 144 a forward, no K2; profiled;
-15. ``[serve-hybrid]``: zamba2-7b at full width (d 3584, 112 SSM heads,
+18. ``[serve-hybrid]``: zamba2-7b at full width (d 3584, 112 SSM heads,
     state 64, shared block 32 heads of 112, d_ff 14336), 13 of its 81
     layers (two groups of 6 and one tail layer), fake_quant + flash, batch
     4, prompt 512, 16 tokens: K1 exactly 92 a forward, K2 2; profiled;
-16. ``[k1-served]``: K1 against its plain version (``torch.equal``) at
-    every (M, K, N) that phases 4 and 13-15 gave it, recorded as they ran:
+19. ``[k1-served]``: K1 against its plain version (``torch.equal``) at
+    every (M, K, N) that phases 4 and 13-18 gave it, recorded as they ran:
     each linear at its full M (prefill batch x prompt, decode batch, an
-    expert's capacity), on random int8 operands; the plain version runs in
-    row blocks, as rows are independent at a fixed step. The shapes named
-    for the new families (N 24, K 7168, expert M 8 and 80) must be among
-    them;
-17. ``[agree-moe]`` (both ``moe_impl``), ``[agree-mamba]``,
+    expert's capacity, a chip's block), on random int8 operands; the plain
+    version runs in row blocks, as rows are independent at a fixed step.
+    The shapes named for the new families (N 24, K 7168, expert M 8 and
+    80) and for the mesh (a 2x2 chip's M 512 K 288, the 1x4 unembed's K 144
+    N 49152) must be among them;
+20. ``[agree-moe]`` (both ``moe_impl``), ``[agree-mamba]``,
     ``[agree-hybrid]``: phase 6 on the reduced float32 configs, with the
     routed experts compared first (a differing choice is printed as a
     routing flip with its probability margin);
-18. one JSON line of every kernel with its launches (from phase 4; per
-    serve path in ``launches_by_path``), times and bound, the card's line
-    again, and the final ``{"ok": true, ...}`` line.
+21. the host seconds each group of phases took (``[time]``), one JSON line
+    of every kernel with its launches (from phase 4; per path in
+    ``launches_by_path``), times and bound, the card's line again, and the
+    final ``{"ok": true, ...}`` line.
 
 Every number printed stands after the card's name and power limit (phase 1,
 repeated before the last line). It imports nothing of JAX or of the JAX
@@ -366,7 +394,8 @@ def k1_served_phase(torch, cmm, shapes: dict) -> float:
               f"in {-(-m // block)} row blocks")
     served = {(m, k, n) for m, k, n, *_ in shapes}
     named = {"N 24": any(n == 24 for _, _, n in served), "K 7168": any(k == 7168 for _, k, _ in served),
-             "expert M 80": any(m == 80 for m, _, _ in served), "expert M 8": any(m == 8 for m, _, _ in served)}
+             "expert M 80": any(m == 80 for m, _, _ in served), "expert M 8": any(m == 8 for m, _, _ in served),
+             "shard M 512 K 288": (512, 288, 576) in served, "program K 144 N 49152": (4, 144, 49152) in served}
     if not all(named.values()):
         raise AssertionError(f"the serve paths gave K1 none of {[s for s, ok in named.items() if not ok]}")
     print(f"[k1-served] {len(shapes)} served shapes, among them {', '.join(named)}: all bit-exact "
@@ -1036,6 +1065,235 @@ def serve_fabric_phase(torch, cmm, fa):
     return launches
 
 
+MESHES = ((1, 4), (2, 2))  # the multi-chip meshes the [shard] phase runs, (data, model)
+
+
+def close(a, b, atol: float, rtol: float) -> bool:
+    """``|a - b| <= atol + rtol |b|`` everywhere (numpy's ``allclose``)."""
+    return bool(((a - b).abs() <= atol + rtol * b.abs()).all())
+
+
+def shard_phase(torch, cmm):
+    """The multi-chip fabric on smollm-135m at full width, every chip on the
+    card: the whole model's mesh plans and rollups; one layer's seven
+    linears through ``execute_sharded_matmul(fake_quant)`` (one K1 launch
+    per chip block) on 1x1 and, under both backends, on 1x4 and 2x2; the
+    noisy bit-plane executor on q_proj on 1x4 and 2x2, its first two column
+    tiles equal to the CPU's."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.core.cim_linear import CiMConfig, cim_matmul
+    from repro_torch.fabric import (
+        ChipMeshConfig, FabricConfig, execute_matmul, execute_sharded_matmul, fabric_report, map_matmul, map_model,
+        shard_model, shard_placement, sharded_fabric_report,
+    )
+
+    cfg = get_config("smollm-135m")
+    fb = FabricConfig(mode="hybrid", n_arrays=256)
+    t0 = time.time()
+    one = fabric_report(map_model(cfg, fb, tokens=4), fb)["totals"]
+    for d, m in ((1, 1), (1, 4), (2, 2), (4, 4)):
+        cm = ChipMeshConfig(data=d, model=m, fabric=fb)
+        sps = shard_model(cfg, cm, tokens=4)
+        rep = sharded_fabric_report(sps, cm)
+        t = rep["totals"]
+        # the plan is host arithmetic: held to the analytic numbers (every K
+        # of smollm is 36 or 96 tiles and M 4, so nothing falls back)
+        bad = [sp.name for sp in sps if (sp.k_splits, sp.d_splits) != (m, d) or sp.fallbacks
+               or sp.crosschip_bits_per_pass != (m - 1) * sp.m * sp.n * cm.psum_bits]
+        if bad or len(sps) != cfg.n_layers * 7 + 1 or t["conversions"] != one["conversions"] or not all(
+                isinstance(v, bool) or 0 <= v < float("inf") for v in t.values()):
+            raise AssertionError(f"[shard] smollm-135m on {d}x{m}: layers {bad[:3]} off the analytic plan, totals {t}")
+        print(f"[shard] shard_model + sharded_fabric_report, smollm-135m full width on {d}x{m}, tokens 4: "
+              f"{t['tiles_per_chip']} tiles per chip, {t['conversions']:.6g} conversions (the one-chip count), "
+              f"{t['crosschip_bits_per_pass']:.6g} cross-chip bits per pass (= sum (model-1) M N 24), latency "
+              f"{t['latency_s'] * 1e3:.6g} ms, {t['latency_s_overlapped'] * 1e3:.6g} ms overlapped")
+    print(f"[shard] the four plans and rollups took {time.time() - t0:.2f} s host")
+
+    cim = CiMConfig(mode="fake_quant", ste=False)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    m_rows = 1024
+    layer = []
+    for name, (k, n) in zip(LAYER_NAMES, LAYER_LINEARS):
+        x = torch.randn((m_rows, k), generator=gen, device="cuda")
+        w = torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5
+        layer.append((name, x, w, map_matmul(name, m_rows, k, n, fb, cim=cim)))
+
+    def runner(cm, backend):
+        plans = [shard_placement(p, cm) for *_, p in layer]
+        return lambda: [execute_sharded_matmul(x, w, cm, cim, sharded=sp, backend=backend)
+                        for (_, x, w, _), sp in zip(layer, plans)]
+
+    def counted(run):
+        cmm.launches = 0
+        ys = run()
+        torch.cuda.synchronize()
+        return ys, cmm.launches
+
+    k1_ms = lambda by: sum(ms for key, (ms, _) in by.items() if "cim_fq_kernel" in key)  # noqa: E731
+    run_direct = lambda: [cim_matmul(x, w, cim) for _, x, w, _ in layer]  # noqa: E731
+    busy_direct, by_direct = device_busy(torch, run_direct)
+    one_chip = ChipMeshConfig(fabric=fb)
+    y1, launches = counted(runner(one_chip, "auto"))
+    if launches != 7:
+        raise AssertionError(f"[shard] 1x1 layer: {launches} K1 launches, want 7")
+    for (name, x, w, p), y, y_direct in zip(layer, y1, run_direct()):
+        if not (torch.equal(y, y_direct) and torch.equal(y, execute_matmul(x, w, fb, cim, placement=p))):
+            raise AssertionError(f"[shard] 1x1 {name}: execute_sharded_matmul differs from cim_matmul / execute_matmul")
+    busy, by = device_busy(torch, runner(one_chip, "auto"))
+    times = {"1x1": {"busy_ms": busy, "k1_ms": k1_ms(by), "launches": launches}}
+    print(f"[shard] execute_sharded_matmul(fake_quant) on one layer's 7 linears (M {m_rows}), 1x1 (sequential): "
+          f"7 K1 launches, each output equal bit for bit to cim_matmul's and execute_matmul's on the card; device busy "
+          f"{busy:.4f} ms (K1 {k1_ms(by):.4f}) against cim_matmul's {busy_direct:.4f} ms (K1 {k1_ms(by_direct):.4f}, "
+          f"7 launches)")
+    for d, m in MESHES:
+        cm = ChipMeshConfig(data=d, model=m, fabric=fb)
+        outs = {}
+        for backend in ("sequential", "shard_map"):
+            ys, launches = counted(runner(cm, backend))
+            if launches != 7 * d * m:
+                raise AssertionError(f"[shard] {d}x{m} {backend}: {launches} K1 launches, want {7 * d * m}")
+            busy, by = device_busy(torch, runner(cm, backend))
+            times[f"{d}x{m} {backend}"] = {"busy_ms": busy, "k1_ms": k1_ms(by), "launches": launches}
+            outs[backend] = ys
+        for (name, *_), ys, ym, y in zip(layer, outs["sequential"], outs["shard_map"], y1):
+            if not torch.equal(ys, ym):
+                raise AssertionError(f"[shard] {d}x{m} {name}: the two backends differ")
+            if not close(ym, y, 1e-4, 1e-5):
+                raise AssertionError(f"[shard] {d}x{m} {name}: {float((ym - y).abs().max()):.3g} off the 1x1 result")
+        worst = max(float((ym - y).abs().max()) for ym, y in zip(outs["shard_map"], y1))
+        print(f"[shard] {d}x{m}: {7 * d * m} K1 launches on each backend (7 linears x {d * m} chips), the backends "
+              f"equal bit for bit, within {worst:.3g} max-abs of 1x1 (atol 1e-4, rtol 1e-5); device busy sequential "
+              f"{times[f'{d}x{m} sequential']['busy_ms']:.4f} ms (K1 {times[f'{d}x{m} sequential']['k1_ms']:.4f}), "
+              f"shard_map {times[f'{d}x{m} shard_map']['busy_ms']:.4f} ms (K1 {times[f'{d}x{m} shard_map']['k1_ms']:.4f}) "
+              f"against cim_matmul's {busy_direct:.4f} ms")
+
+    bp = CiMConfig(mode="bitplane", a_bits=4, w_bits=4, rows=16, adc_bits=5,
+                   comparator_sigma=0.02, ref_mismatch_sigma=0.01, ste=False)
+    k, n = LAYER_LINEARS[0]
+    x = torch.randn((16, k), generator=gen, device="cuda")
+    w = torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5
+    key = prng.PRNGKey(0)
+    cols = 64  # the CPU holds the first two column tiles: its threefry is ~10x the card's host time here
+    for d, m in MESHES:
+        cm = ChipMeshConfig(data=d, model=m, fabric=fb)
+        t0 = time.time()
+        y = execute_sharded_matmul(x, w, cm, bp, key=key.cuda())
+        torch.cuda.synchronize()
+        t_card = time.time() - t0
+        # column tiles draw from fold_in(key, tile) and columns quantize on their
+        # own, so the call on the first 64 columns is the full call's first 64
+        y_sub, st = execute_sharded_matmul(x, w[:, :cols], cm, bp, key=key.cuda(), return_stats=True)
+        t0 = time.time()
+        y_cpu, st_cpu = execute_sharded_matmul(x.cpu(), w[:, :cols].cpu(), cm, bp, key=key, return_stats=True)
+        t_cpu = time.time() - t0
+        if not (torch.equal(y[:, :cols], y_sub) and torch.equal(y_sub.cpu(), y_cpu)
+                and torch.equal(st.conversions.cpu(), st_cpu.conversions)
+                and torch.equal(st.comparisons.cpu(), st_cpu.comparisons)):
+            raise AssertionError(f"[shard] noisy bitplane q_proj on {d}x{m}: the card differs from the CPU")
+        print(f"[shard] noisy bitplane execute_sharded_matmul q_proj on {d}x{m} (M 16, K {k}, N {n}; 4/4 bits, "
+              f"rows 16, 5-bit SAR, comparator sigma 0.02, mismatch 0.01, PRNGKey(0), shard_map): {t_card:.2f} s on "
+              f"the card (host clock); its first {cols} columns equal the same call on those columns, on the card "
+              f"and on the CPU ({t_cpu:.2f} s), outputs and stats ({int(st.conversions)} conversions)")
+    return {"direct_busy_ms": busy_direct, "direct_k1_ms": k1_ms(by_direct), **times}
+
+
+def program_phase(torch, cmm):
+    """The fused forward over smollm-135m's whole residual chain (121
+    linears: q, o, gate, down per layer and the unembed) at full width,
+    tokens 4, fake_quant, on 1x1 and 1x4: K1 ``121 x chips`` launches, the
+    collective census, equality with the per-layer loop, and
+    ``measure_forward``'s times."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.core.cim_linear import CiMConfig
+    from repro_torch.fabric import ChipMeshConfig, FabricConfig, compile_forward, measure_forward
+    from repro_torch.fabric.collectives import census
+
+    cfg = get_config("smollm-135m")
+    fb = FabricConfig(mode="hybrid", n_arrays=256)
+    cim = CiMConfig(mode="fake_quant", ste=False)
+    out = {}
+    x = ws = None
+    for d, m in ((1, 1), (1, 4)):
+        cm = ChipMeshConfig(data=d, model=m, fabric=fb)
+        t0 = time.time()
+        prog = compile_forward(cfg, cm, cim, tokens=4)
+        t_plan = time.time() - t0
+        if prog.backend != "shard_map" or prog.n_layers != cfg.n_layers * 4 + 1:
+            raise AssertionError(f"[program] {d}x{m}: backend {prog.backend}, {prog.n_layers} layers, {prog.problems}")
+        if x is None:
+            x = prog.example_input(prng.PRNGKey(0, "cuda"))
+            # unit-variance weights over K keep the 121-deep chain finite
+            ws = [w / w.shape[0] ** 0.5 for w in prog.random_weights(prng.PRNGKey(1, "cuda"))]
+        cmm.launches = 0
+        with census() as counts:
+            y = prog(x, ws)
+        torch.cuda.synchronize()
+        launches = cmm.launches
+        want = {"all_gather": int(m > 1), "reduce_scatter": prog.n_layers if m > 1 else 0, "psum": 2,
+                "pmax": prog.n_layers, "ppermute": 0, "all_to_all": 0}
+        if launches != prog.n_layers * d * m or counts != want:
+            raise AssertionError(f"[program] {d}x{m}: {launches} K1 launches (want {prog.n_layers * d * m}), "
+                                 f"census {counts} (want {want})")
+        y_loop = prog.reference_forward(x, ws)
+        if not bool(torch.isfinite(y).all()) or y.shape != (4, cfg.padded_vocab):
+            raise AssertionError(f"[program] {d}x{m}: output {tuple(y.shape)}, finite {bool(torch.isfinite(y).all())}")
+        exact = torch.equal(y, y_loop)
+        if not (exact if m == 1 else close(y, y_loop, 1e-5, 1e-6)):
+            raise AssertionError(f"[program] {d}x{m}: fused differs from the per-layer loop by "
+                                 f"{float((y - y_loop).abs().max()):.3g}")
+        meas = measure_forward(prog, x=x, weights=ws, iters=3, per_layer_backend="sequential", per_layer_iters=2)
+        out[f"{d}x{m}"] = {"launches": launches, "census": counts, **{
+            key: meas[key] for key in ("fused_s", "local_s", "per_layer_s", "measured_collective_s",
+                                       "modeled_link_s", "link_clock_calibration")}}
+        calib = meas["link_clock_calibration"]
+        print(f"[program] compile_forward, smollm-135m full width on {d}x{m}, tokens 4, fake_quant ({t_plan:.2f} s "
+              f"host to plan): {prog.n_layers} linears, {launches} K1 launches (= {prog.n_layers} x {d * m} chips), "
+              f"census {counts}; fused {'equal bit for bit to' if exact else 'within atol 1e-5, rtol 1e-6 of'} the "
+              f"per-layer loop; fused {meas['fused_s'] * 1e3:.3f} ms, collectives stripped "
+              f"{meas['local_s'] * 1e3:.3f} ms, per-layer loop {meas['per_layer_s'] * 1e3:.3f} ms (host clock, "
+              f"synchronized, best of 3 and 2); modeled link {meas['modeled_link_s'] * 1e3:.6g} ms, "
+              f"link_clock_calibration {'n/a' if calib is None else f'{calib:.6g}'}")
+    return out
+
+
+def serve_shard_phase(torch, cmm, fa):
+    """``serve`` on a chip mesh through its CLI: smollm-135m on 4 chips (2x2)
+    with the ``shard_map`` backend, and mamba2-130m on 1x2 with the fused
+    chain program. K1 is held to the model's count (7 linears a smollm layer,
+    6 a mamba2 layer, for each of the 16 forwards: the fabric's validation
+    matmul and chain run ``bitplane``, the plain per-plane path), K2 to 0
+    (the CLI's blocked attention)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    runs = {}
+    for tag, arch, per_layer, argv in (
+        ("smollm-135m 2x2", "smollm-135m", 7, ["--fabric-chips", "4", "--fabric-backend", "shard_map"]),
+        ("mamba2-130m 1x2", "mamba2-130m", 6, ["--fabric-mesh", "1x2", "--fabric-program"]),
+    ):
+        gen_len = 16
+        cmm.launches = fa.launches = 0
+        out = serve.main(["--arch", arch, "--cim", "fake_quant", "--fabric", "hybrid", *argv,
+                          "--batch", "4", "--prompt-len", "256", "--gen-len", str(gen_len)])
+        launches = {"cim_matmul_fq": cmm.launches, "flash_attention": fa.launches}
+        want = {"cim_matmul_fq": per_layer * get_config(arch).n_layers * gen_len, "flash_attention": 0}
+        fab = out["fabric"]
+        numbers = [v for v in fab.values() if not isinstance(v, (bool, str))]
+        gen = out["generated"]
+        if (fab["exec_backend"] != "shard_map" or not all(0 <= v < float("inf") for v in numbers)
+                or launches != want or gen.shape != (4, gen_len)
+                or not bool(torch.isfinite(out["logits"]).all())):
+            raise AssertionError(f"[serve-shard] {tag}: fabric {fab}, launches {launches} (want {want}), "
+                                 f"tokens {gen.shape}")
+        runs[tag] = launches
+        print(f"[serve-shard] {tag}, fake_quant, batch 4, prompt 256, gen 16: backend {fab['exec_backend']}, "
+              f"prefill {out['prefill_s']:.4f} s, decode {out['decode_tok_s']:.2f} tok/s; launches {launches}; "
+              f"fabric {fab}")
+    return runs
+
+
 def _to(tree, device):
     return {k: _to(v, device) for k, v in tree.items()} if isinstance(tree, dict) else tree.to(device)
 
@@ -1239,6 +1497,12 @@ def main() -> int:
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}")
 
+    took, last = {}, [time.time()]
+
+    def stamp(phases: str) -> None:  # seconds since the previous stamp, by phase
+        took[phases] = round(time.time() - last[0], 1)
+        last[0] = time.time()
+
     t0 = time.time()
     paths = build.build()
     print(f"[build] {len(paths)} kernels built in {time.time() - t0:.1f} s into {build.build_dir()}")
@@ -1247,39 +1511,62 @@ def main() -> int:
         for line in (log.read_text().splitlines() if log.exists() else []):
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
+    stamp("build")
 
     k1 = kernel_phase_k1(torch, cmm, ref)
     k2 = kernel_phase_k2(torch, fa, ref)
     k3 = kernel_phase_k3(torch, cmm)
     k4 = kernel_phase_k4(torch, aq)
+    stamp("k1-k4")
     served = {}  # the K1 shapes of the serve paths, checked in [k1-served]
     with k1_recorder(cmm, served, "serve"):
         launches, cfg, st, out = serve_phase(torch, cmm, fa)
     profile_phase(torch, cfg, st, out)
     k1["launches"], k2["launches"] = launches["cim_matmul_fq"], launches["flash_attention"]
     agreement_phase(torch)
+    stamp("serve, profile, agree")
     ops_launches = ops_phase(torch, cmm, aq)
     k3["launches"], k4["launches"] = ops_launches["cim_matmul_bp"], ops_launches["adc_quant"]
     serve_bp_phase(torch, cmm, fa, aq)
     agreement_phase(torch, mode="bitplane", tag="agree-bp")
+    stamp("ops, serve-bp, agree-bp")
     prng_phase(torch)
     fabric = fabric_phase(torch, cmm)
     k1["fabric_layer"] = fabric
     serve_fabric_phase(torch, cmm, fa)
+    stamp("prng, fabric, serve-fabric")
+    with k1_recorder(cmm, served, "shard"):
+        shard = shard_phase(torch, cmm)
+    stamp("shard")
+    with k1_recorder(cmm, served, "program"):
+        program = program_phase(torch, cmm)
+    stamp("program")
+    with k1_recorder(cmm, served, "serve-shard"):
+        serve_shard_launches = serve_shard_phase(torch, cmm, fa)
+    stamp("serve-shard")
+    k1["shard_layer"], k1["program"] = shard, program
     with k1_recorder(cmm, served, "serve-moe"):
         moe_launches = serve_moe_phase(torch, cmm, fa)
     with k1_recorder(cmm, served, "serve-mamba"):
         mamba_launches = serve_mamba_phase(torch, cmm, fa)
     with k1_recorder(cmm, served, "serve-hybrid"):
         hybrid_launches = serve_hybrid_phase(torch, cmm, fa)
+    stamp("serve-moe, serve-mamba, serve-hybrid")
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_served_phase(torch, cmm, served))
+    stamp("k1-served")
     for impl in ("dense", "scatter"):
         agreement_phase(torch, arch="qwen3-moe-30b-a3b", tag="agree-moe", moe_impl=impl)
     agreement_phase(torch, arch="mamba2-130m", tag="agree-mamba")
     agreement_phase(torch, arch="zamba2-7b", tag="agree-hybrid")
+    stamp("agree-moe, agree-mamba, agree-hybrid")
+    print(f"[time] host seconds by phase: {took}; {sum(took.values()):.1f} s in all")
     paths = {"serve": launches, "serve-moe dense": moe_launches["dense"],
              "serve-moe scatter": moe_launches["scatter"], "serve-mamba": mamba_launches,
-             "serve-hybrid": hybrid_launches}
+             "serve-hybrid": hybrid_launches,
+             "shard": {"cim_matmul_fq": sum(v["launches"] for v in shard.values() if isinstance(v, dict)),
+                       "flash_attention": 0},
+             "program": {"cim_matmul_fq": sum(v["launches"] for v in program.values()), "flash_attention": 0},
+             **{f"serve-shard {tag}": counts for tag, counts in serve_shard_launches.items()}}
     for entry, name in ((k1, "cim_matmul_fq"), (k2, "flash_attention")):
         entry["launches_by_path"] = {path: counts[name] for path, counts in paths.items()}
 

@@ -1,6 +1,7 @@
 """Device choice of the port's entry points (CUDA unless the caller asks
-for the CPU, and never a quiet fall back to the CPU), and the divisor that
-keeps a division by a constant a true divide on every device."""
+for the CPU, and never a quiet fall back to the CPU), the divisor that
+keeps a division by a constant a true divide on every device, and the
+synchronization that host clocks need."""
 
 from __future__ import annotations
 
@@ -8,7 +9,7 @@ import functools
 
 import torch
 
-__all__ = ["divisor", "resolve_device"]
+__all__ = ["divisor", "resolve_device", "synchronize"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -20,6 +21,13 @@ def resolve_device(device="cuda") -> torch.device:
             "CUDA is not available; pass device='cpu' to run the port on the CPU"
         )
     return device
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for ``device``'s queued work (a no-op on the CPU), so a host
+    clock read after it times the work and not its launch."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def divisor(value: float, like: torch.Tensor, dtype=torch.float32) -> torch.Tensor:

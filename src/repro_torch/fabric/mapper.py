@@ -17,10 +17,11 @@ Digitization counts follow ``core.cim_linear.digitization_stats``: each
 (input-plane x weight-plane) pair of each (m, k-tile, output-column) triple is
 one analog-to-digital conversion.
 
-The PyTorch counterpart of ``repro.fabric.mapper``. The forward chain and
-graph (``model_forward_chain``, ``GraphNode``, ``ForwardGraph``,
-``model_forward_graph``, ``model_block_template``) wait for the port of the
-fused graph executor (ROADMAP.md, port queue A7).
+The PyTorch counterpart of ``repro.fabric.mapper``, with the forward chain
+(``model_forward_chain``) that ``fabric.program`` fuses. The forward graph
+(``GraphNode``, ``ForwardGraph``, ``model_forward_graph``,
+``model_block_template``) waits for the port of the fused graph executor
+(ROADMAP.md, port queue A7).
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.cim_linear import CiMConfig
 from repro_torch.fabric.topology import FabricConfig
 
-__all__ = ["TileAssignment", "LayerPlacement", "map_matmul", "map_model", "model_matmuls"]
+__all__ = ["TileAssignment", "LayerPlacement", "map_matmul", "map_model", "model_matmuls", "model_forward_chain"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -256,6 +257,46 @@ def model_matmuls(
             raise ValueError(cfg.family)
     out.append(("unembed", tokens, d, cfg.padded_vocab))
     return out
+
+
+def model_forward_chain(
+    cfg: ModelConfig, tokens: int, block_only: bool = False
+) -> List[Tuple[str, int, int, int]]:
+    """The maximal *chained* subset of :func:`model_matmuls`: starting from
+    the ``d_model`` residual stream, keep every matmul whose K equals the
+    previous kept matmul's N — the linears on the forward critical path,
+    where layer i's output IS layer i+1's input.
+
+    This is the workload ``fabric.program.compile_forward`` fuses. Sibling
+    projections that branch off the residual stream rather than continue it
+    (``k_proj`` / ``v_proj`` / ``up_proj`` / the MoE ``router``) are skipped
+    even when their K happens to match, and MoE keeps only ``expert0`` — a
+    token's critical path runs through ONE activated expert. A dense
+    transformer therefore chains ``q_proj -> o_proj -> gate_proj ->
+    down_proj`` per layer plus the unembed; families whose residual path is
+    not a pure matmul chain (Mamba's ``in_proj -> SSM -> out_proj``) yield
+    shorter chains.
+
+    Example::
+
+        >>> from repro_torch.configs.registry import get_config
+        >>> from repro_torch.fabric import model_forward_chain
+        >>> [n for n, *_ in model_forward_chain(get_config("smollm-135m"), 4, block_only=True)]
+        ['block.q_proj', 'block.o_proj', 'block.gate_proj', 'block.down_proj']
+    """
+    siblings = ("k_proj", "v_proj", "up_proj", "router")
+    chain: List[Tuple[str, int, int, int]] = []
+    cur = cfg.d_model
+    for name, m, k, n in model_matmuls(cfg, tokens, block_only=block_only):
+        parts = name.split(".")
+        if parts[-1] in siblings:
+            continue
+        if any(p.startswith("expert") and p != "expert0" for p in parts):
+            continue  # parallel experts: only one is on a token's critical path
+        if k == cur:
+            chain.append((name, m, k, n))
+            cur = n
+    return chain
 
 
 def map_model(

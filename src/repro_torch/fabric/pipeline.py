@@ -21,10 +21,10 @@ the in-memory fabric's cheap digitizers (Table I) buy enough extra arrays to
 beat the conventional-ADC fabric's conversions/cycle/mm^2 (pair_sar, hybrid),
 reproducing the paper's throughput-recovery claim.
 
-The PyTorch counterpart of ``repro.fabric.pipeline`` (pure Python). The mesh
-functions ``overlapped_mesh_latency`` and ``link_validation`` wait for the
-port of ``fabric.shard`` and the fused program (ROADMAP.md, port queues A6,
-A8).
+The PyTorch counterpart of ``repro.fabric.pipeline`` (pure Python), with the
+mesh functions: :func:`overlapped_mesh_latency` (a sharded layer list's
+double-buffered link overlap) and :func:`link_validation` (the fused
+program's measured collective seconds beside the modeled link time).
 """
 
 from __future__ import annotations
@@ -40,6 +40,8 @@ __all__ = [
     "iso_area_comparison",
     "conversion_cycles",
     "overlap_rounds",
+    "overlapped_mesh_latency",
+    "link_validation",
 ]
 
 
@@ -205,6 +207,116 @@ def overlap_rounds(compute_s: Sequence[float], link_s: Sequence[float]) -> float
     for i in range(1, len(compute_s)):
         t += max(compute_s[i], link_s[i - 1])
     return t + link_s[-1]
+
+
+def overlapped_mesh_latency(sharded: Sequence, n_conversions: int = 96) -> dict:
+    """Mesh latency with layer ``i``'s reduce-scatter overlapping layer
+    ``i+1``'s conversions (see :func:`overlap_rounds`), for a list of
+    :class:`~repro_torch.fabric.shard.ShardedPlacement` layers.
+
+    Returns serial vs overlapped end-to-end seconds plus how much link time
+    the overlap hides — the number ``sharded_fabric_report`` folds into its
+    totals.
+
+    Example::
+
+        >>> from repro_torch.fabric import ChipMeshConfig, FabricConfig, map_matmul, shard_placement
+        >>> fb = FabricConfig(mode="pair_sar", n_arrays=8)
+        >>> cm = ChipMeshConfig(model=2, fabric=fb)
+        >>> sps = [shard_placement(map_matmul(f"l{i}", 4, 64, 64, fb), cm) for i in range(3)]
+        >>> r = overlapped_mesh_latency(sps)
+        >>> 0 < r["overlapped_latency_s"] <= r["serial_latency_s"]
+        True
+    """
+    if not sharded:
+        return {
+            "serial_latency_s": 0.0,
+            "overlapped_latency_s": 0.0,
+            "hidden_link_s": 0.0,
+            "link_hidden_fraction": 0.0,
+        }
+    fabric = sharded[0].chip_mesh.fabric
+    tp = fabric_throughput(fabric, n_conversions)
+    rate_per_compute = tp["group_conversions_per_cycle"] / fabric.compute_arrays_per_group
+    compute = [conversion_cycles(sp.chip, rate_per_compute) / fabric.freq_hz for sp in sharded]
+    link = [sp.crosschip_latency_s for sp in sharded]
+    serial = sum(compute) + sum(link)
+    overlapped = overlap_rounds(compute, link)
+    hidden = serial - overlapped
+    total_link = sum(link)
+    # hidden == sum(min(compute_i, link_{i-1})) lies in [0, total_link] by
+    # construction; the clamp only guards float subtraction slop at the
+    # link >= compute boundary (everything hidden) and the zero-link end
+    fraction = min(1.0, max(0.0, hidden / total_link)) if total_link > 0 else 0.0
+    return {
+        "serial_latency_s": serial,
+        "overlapped_latency_s": overlapped,
+        "hidden_link_s": hidden,
+        "link_hidden_fraction": fraction,
+    }
+
+
+def link_validation(sharded: Sequence, measured_collective_s: Optional[float], n_conversions: int = 96) -> dict:
+    """Measured-vs-modeled link latency for one forward pass — the
+    validation loop the fused program closes.
+
+    ``measured_collective_s`` is the fused program's collective time
+    (``fabric.program.measure_forward``: fused minus collective-stripped,
+    host clock around synchronized device work); the modeled side is
+    :func:`overlapped_mesh_latency`'s prediction in fabric seconds (10 MHz
+    conversion clock, ``link_bits_per_s`` links). The two clock domains
+    differ, so their ratio is a *clock-domain calibration constant* — the
+    ``link_clock_calibration`` key (``measured_over_modeled`` is its alias)
+    — never expected to be 1; ``None`` when the mesh has no links or nothing
+    was measured. When ``repro_torch.obs`` metrics collection is active the
+    three land on the ``fabric_modeled_link_seconds`` /
+    ``fabric_measured_collective_seconds`` / ``fabric_link_clock_calibration``
+    gauges.
+
+    Example::
+
+        >>> from repro_torch.fabric import ChipMeshConfig, FabricConfig, map_matmul, shard_placement
+        >>> fb = FabricConfig(mode="pair_sar", n_arrays=8)
+        >>> cm = ChipMeshConfig(model=2, fabric=fb)
+        >>> sps = [shard_placement(map_matmul(f"l{i}", 4, 64, 64, fb), cm) for i in range(2)]
+        >>> v = link_validation(sps, measured_collective_s=1e-3)
+        >>> v["modeled_link_s"] > 0 and v["link_clock_calibration"] > 0
+        True
+    """
+    from repro_torch.obs import metrics as obs_metrics
+
+    ov = overlapped_mesh_latency(sharded, n_conversions)
+    modeled = sum(sp.crosschip_latency_s for sp in sharded)
+    ratio = (
+        measured_collective_s / modeled
+        if measured_collective_s is not None and modeled > 0
+        else None
+    )
+    obs_metrics.set_gauge(
+        "fabric_modeled_link_seconds", modeled,
+        help="Modeled reduce-scatter link time per forward pass (fabric clock).",
+    )
+    if measured_collective_s is not None:
+        obs_metrics.set_gauge(
+            "fabric_measured_collective_seconds", measured_collective_s,
+            help="Measured fused-minus-local collective wall time (host clock).",
+        )
+    if ratio is not None:
+        obs_metrics.set_gauge(
+            "fabric_link_clock_calibration", ratio,
+            help="Clock-domain calibration constant: measured host seconds / "
+            "modeled fabric-clock link seconds.",
+        )
+    return {
+        "modeled_link_s": modeled,
+        "modeled_serial_latency_s": ov["serial_latency_s"],
+        "modeled_overlapped_latency_s": ov["overlapped_latency_s"],
+        "modeled_hidden_link_s": ov["hidden_link_s"],
+        "modeled_link_hidden_fraction": ov["link_hidden_fraction"],
+        "measured_collective_s": measured_collective_s,
+        "link_clock_calibration": ratio,
+        "measured_over_modeled": ratio,
+    }
 
 
 def iso_area_comparison(fabric: FabricConfig, n_conversions: int = 96) -> dict:

@@ -7,10 +7,11 @@ digitization area vs the dedicated 40 nm SAR (~25x) and Flash (~51x) ADCs
 fabric of equal footprint.
 
 The PyTorch counterpart of ``repro.fabric.report``: the same dicts and the
-same markdown. :func:`render_markdown` renders the JAX package's mesh,
-graph, program and autotune sections too; the port's producers of those
-sections (``sharded_fabric_report``, ``graph_section``) wait for the ports of
-``fabric.shard`` and ``fabric.graph`` (ROADMAP.md, port queues A6, A7).
+same markdown, for one chip (:func:`fabric_report`) and for a chip mesh
+(:func:`sharded_fabric_report`, with the fused program's validation).
+:func:`render_markdown` renders the JAX package's graph and autotune
+sections too; their producers (``graph_section``, the autotuner) wait for
+their ports (ROADMAP.md, port queues A7, A8).
 
   PYTHONPATH=src python -m repro_torch.fabric.report --arch smollm-135m --mode hybrid
 """
@@ -23,10 +24,15 @@ from typing import List, Optional
 
 from repro_torch.core.energy_area import area_um2, energy_pj
 from repro_torch.fabric.mapper import LayerPlacement
-from repro_torch.fabric.pipeline import conversion_cycles, fabric_throughput, iso_area_comparison
-from repro_torch.fabric.topology import EMA_PJ_PER_BIT, FabricConfig
+from repro_torch.fabric.pipeline import (
+    conversion_cycles,
+    fabric_throughput,
+    iso_area_comparison,
+    overlapped_mesh_latency,
+)
+from repro_torch.fabric.topology import EMA_PJ_PER_BIT, ChipMeshConfig, FabricConfig
 
-__all__ = ["fabric_report", "render_markdown"]
+__all__ = ["fabric_report", "sharded_fabric_report", "render_markdown"]
 
 
 def _layer_row(
@@ -125,10 +131,123 @@ def fabric_report(
     }
 
 
+def sharded_fabric_report(
+    sharded: list,
+    chip_mesh: ChipMeshConfig,
+    n_conversions: int = 96,
+    measured: Optional[dict] = None,
+    graph=None,
+    program=None,
+) -> dict:
+    """Mesh-level rollup of :class:`~repro_torch.fabric.shard.ShardedPlacement`\\ s.
+
+    Layer rows keep the single-chip columns — ``conversions``, digitization
+    energy, and on-chip ``ema_bits_per_pass`` are mesh totals (summed over
+    active chips); ``latency_cycles`` is the per-chip critical path (chips
+    run in parallel) — and add the mesh's new cost columns:
+    ``crosschip_bits_per_pass`` (ring reduce-scatter traffic combining the
+    K-parallel partial sums), its link energy, and its link latency.
+    Residency is per chip: each model-axis chip only has to hold its own
+    K-shard.
+
+    ``measured`` (a ``fabric.program.measure_forward`` dict) attaches the
+    fused program's measured-vs-modeled link-latency validation as a
+    ``program_validation`` section. The forward graph's section (``graph``,
+    ``program``) waits for the port of ``fabric.graph`` (ROADMAP.md, port
+    queue A7) and raises ``NotImplementedError``.
+
+    Example::
+
+        >>> from repro_torch.configs.registry import get_config
+        >>> from repro_torch.fabric import ChipMeshConfig, FabricConfig, shard_model, sharded_fabric_report
+        >>> cm = ChipMeshConfig(model=4, fabric=FabricConfig(mode="hybrid", n_arrays=60))
+        >>> sps = shard_model(get_config("smollm-135m"), cm, tokens=4, block_only=True)
+        >>> rep = sharded_fabric_report(sps, cm)
+        >>> rep["mesh"]["n_chips"], rep["totals"]["crosschip_bits_per_pass"] > 0
+        (4, True)
+    """
+    if graph is not None or program is not None:
+        raise NotImplementedError(
+            "the forward graph's report section (graph_section) is not ported yet "
+            "(ROADMAP.md, port queue A7)"
+        )
+    fabric = chip_mesh.fabric
+    tp = fabric_throughput(fabric, n_conversions)
+    rate_per_compute = tp["group_conversions_per_cycle"] / fabric.compute_arrays_per_group
+    # residency is per chip: every chip must hold its shard of EVERY layer
+    chip_tiles = sum(sp.chip.n_weight_tiles for sp in sharded)
+    mesh_resident = chip_tiles <= fabric.n_compute_arrays
+
+    layers = []
+    for sp in sharded:
+        base = _layer_row(sp.chip, fabric, rate_per_compute, mesh_resident)
+        active = sp.n_chips_active
+        layers.append(
+            {
+                **base,
+                "layer": sp.name,
+                "m": sp.m,
+                "k": sp.k,
+                "n": sp.n,
+                "k_splits": sp.k_splits,
+                "d_splits": sp.d_splits,
+                "chips_active": active,
+                # mesh totals (chips run the same shard cost in parallel)
+                "conversions": base["conversions"] * active,
+                "digitization_energy_pj": base["digitization_energy_pj"] * active,
+                "weight_load_bits": base["weight_load_bits"] * active,
+                "ema_bits_per_pass": base["ema_bits_per_pass"] * active,
+                "ema_energy_pj": base["ema_energy_pj"] * active,
+                "crosschip_bits_per_pass": sp.crosschip_bits_per_pass,
+                "crosschip_energy_pj": sp.crosschip_energy_pj,
+                "crosschip_latency_s": sp.crosschip_latency_s,
+                "latency_total_s": base["latency_s"] + sp.crosschip_latency_s,
+            }
+        )
+    totals = {
+        "tiles_per_chip": chip_tiles,
+        "model_resident": mesh_resident,
+        "conversions": sum(r["conversions"] for r in layers),
+        "latency_cycles": sum(r["latency_cycles"] for r in layers),
+        "latency_s": sum(r["latency_total_s"] for r in layers),
+        "digitization_energy_pj": sum(r["digitization_energy_pj"] for r in layers),
+        "ema_bits_per_pass": sum(r["ema_bits_per_pass"] for r in layers),
+        "ema_energy_pj": sum(r["ema_energy_pj"] for r in layers),
+        "weight_program_bits": sum(r["weight_load_bits"] for r in layers),
+        "crosschip_bits_per_pass": sum(r["crosschip_bits_per_pass"] for r in layers),
+        "crosschip_energy_pj": sum(r["crosschip_energy_pj"] for r in layers),
+        "crosschip_latency_s": sum(r["crosschip_latency_s"] for r in layers),
+    }
+    # double-buffered rounds: layer i's reduce-scatter overlaps layer i+1's
+    # conversion schedule (fabric.pipeline.overlap_rounds)
+    overlap = overlapped_mesh_latency(sharded, n_conversions)
+    totals["latency_s_overlapped"] = overlap["overlapped_latency_s"]
+    totals["crosschip_latency_hidden_s"] = overlap["hidden_link_s"]
+    totals["link_hidden_fraction"] = overlap["link_hidden_fraction"]
+    report = {
+        "mesh": {
+            "shape": {"data": chip_mesh.data, "model": chip_mesh.model},
+            "n_chips": chip_mesh.n_chips,
+            "total_area_mm2": chip_mesh.total_area_um2() / 1e6,
+            "total_weight_capacity_bits": chip_mesh.total_weight_capacity_bits(),
+            "link_bits_per_s": chip_mesh.link_bits_per_s,
+            "link_pj_per_bit": chip_mesh.link_pj_per_bit,
+            "psum_bits": chip_mesh.psum_bits,
+            "fallbacks": [f for sp in sharded for f in sp.fallbacks],
+        },
+        **_chip_sections(fabric, tp, n_conversions),
+        "layers": layers,
+        "totals": totals,
+    }
+    if measured is not None:
+        report["program_validation"] = measured
+    return report
+
+
 def render_markdown(report: dict, max_layers: Optional[int] = 24) -> str:
     """Markdown tables in the roofline.report house style.
 
-    Handles both single-chip (``fabric_report``) and the JAX package's mesh
+    Handles both single-chip (``fabric_report``) and mesh
     (``sharded_fabric_report``) reports; mesh reports gain a header line and
     split / cross-chip-traffic columns.
 

@@ -4,9 +4,11 @@ The PyTorch counterpart of ``repro.fabric.tiles``. ``fabric.execute`` runs
 one chip's quantized ``(M, K) @ (K, N)`` block through
 :func:`column_tile_matmul`: walk the output-column tiles, run each through
 ``core.cim_linear``'s per-plane machinery with a per-tile ``fold_in(key, nt)``
-noise key, and accumulate conversion/comparison stats. The sharded, fused
-program and graph executors of the JAX package share this one definition;
-their ports (ROADMAP.md, port queues A6, A7) will too.
+noise key, and accumulate conversion/comparison stats. The sharded
+executor (``fabric.shard``, one call per chip block) and the fused chain
+program (``fabric.program``, one call per chip and layer) share this one
+definition, as in the JAX package; the fused graph's port (ROADMAP.md, port
+queue A7) will too.
 
 Stats are meaningful in BOTH fidelity modes: ``bitplane`` counts the actual
 ADC conversions / comparator firings performed by ``_bitplane_matmul``;
@@ -70,7 +72,8 @@ def column_tile_matmul(
     cols: int,
     key=None,
     row_offset=0,
-) -> Tuple[torch.Tensor, CimStats]:
+    count: bool = True,
+) -> Tuple[torch.Tensor, Optional[CimStats]]:
     """Execute one chip's quantized block tile-by-tile over its output columns.
 
     ``x_int``: (M, K) integer-valued activations; ``w_int``: (K, N)
@@ -83,6 +86,10 @@ def column_tile_matmul(
     Returns the UNSCALED integer-valued result ``(M, N)`` float32 plus
     :class:`CimStats` (actual counts in ``bitplane`` mode, analytic in
     ``fake_quant``, where one full-width call equals the per-tile walk).
+    ``count=False`` skips the analytic ``fake_quant`` count and returns
+    ``None`` for it: a count past int32 raises (:func:`analytic_cim_stats`),
+    so the executors count only when asked. The JAX package counts on every
+    call.
 
     Example::
 
@@ -98,6 +105,8 @@ def column_tile_matmul(
     n = w_int.shape[1]
     if cim.mode != "bitplane":
         y, _ = _fake_quant_matmul(x_int, w_int, cim)
+        if not count:
+            return y, None
         k_tiles = math.ceil(x_int.shape[1] / cim.rows)
         return y, analytic_cim_stats(cim, x_int.shape[0], k_tiles, n, device=y.device)
     if key is not None:

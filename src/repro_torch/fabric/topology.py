@@ -218,9 +218,9 @@ class ChipMeshConfig:
     weights and split the batch. ``fabric`` describes every chip (one
     :class:`FabricConfig`), so chip-local area/energy/latency roll up
     unchanged while the link parameters price the new cross-chip traffic
-    that a sharded report prices separately from on-chip EMA. The port runs
-    one chip (``data = model = 1``); sharding across chips waits for the
-    port of ``fabric.shard`` (ROADMAP.md, port queue A6).
+    that a sharded report prices separately from on-chip EMA
+    (``fabric.shard``, ``fabric.program``). In the port every chip of the
+    mesh runs on one torch device.
 
     Example::
 
@@ -251,6 +251,13 @@ class ChipMeshConfig:
     @property
     def shape(self) -> tuple:
         return (self.data, self.model)
+
+    def mesh(self):
+        """The shape-only ``(data, model)`` chip mesh
+        (``launch.mesh.make_chip_mesh``)."""
+        from repro_torch.launch.mesh import make_chip_mesh
+
+        return make_chip_mesh(self.data, self.model)
 
     def total_area_um2(self) -> float:
         return self.n_chips * self.fabric.chip_area_um2()

@@ -12,10 +12,17 @@ memory-immersed SAR ADC (``core.cim_linear``, plain PyTorch as in the JAX
 package). With ``attn_impl="flash"`` every prefill layer runs the
 flash-attention CUDA kernel.
 
-With ``--fabric {pair_sar,flash,hybrid}`` the model is also mapped onto one
-chip's CiM fabric (``repro_torch.fabric``) before serving: the batching log
-line carries the per-request fabric cost, one bit-plane matmul runs through
-the fabric executor as a validation pass, and the rollup's markdown follows.
+With ``--fabric {pair_sar,flash,hybrid}`` the model is also mapped onto a
+CiM fabric (``repro_torch.fabric``) before serving — one chip, or a
+``(data, model)`` chip mesh with ``--fabric-chips 4|16`` (2x2, 4x4) or
+``--fabric-mesh DxM``, every chip on the one device: the batching log line
+carries the per-request fabric cost, one bit-plane matmul runs through the
+sharded executor on the resolved backend (``--fabric-backend``) as a
+validation pass, and the rollup's markdown follows. ``--fabric-program``
+also runs the fused forward over one block's residual chain
+(``fabric.compile_forward``) against the per-layer loop and reports its
+measured-vs-modeled link time, for the families whose forward has no matmul
+graph (``mamba``, ``hybrid``).
 
 CLI::
 
@@ -24,11 +31,14 @@ CLI::
     python -m repro_torch.launch.serve --arch mamba2-130m --cim fake_quant
     python -m repro_torch.launch.serve --arch smollm-135m --cim bitplane
     python -m repro_torch.launch.serve --arch smollm-135m --fabric hybrid --fabric-arrays 60
+    python -m repro_torch.launch.serve --arch smollm-135m --cim fake_quant --fabric hybrid \\
+        --fabric-chips 4 --fabric-backend shard_map
+    python -m repro_torch.launch.serve --arch mamba2-130m --fabric hybrid --fabric-mesh 1x2 --fabric-program
 
-Meshes of more than one chip (``--fabric-chips 4|16``, ``--fabric-mesh``,
-``--fabric-backend shard_map``), ``--fabric-program``, ``--fabric-scan``,
-``--fabric-autotune`` and the ``--obs-*`` options of the JAX serve CLI wait
-for their ports (ROADMAP.md, port queues A6-A9) and are refused.
+``--fabric-program`` on the ``dense`` and ``moe`` families (the JAX package
+runs the fused forward graph there), ``--fabric-scan``, ``--fabric-autotune``
+and the ``--obs-*`` options of the JAX serve CLI wait for their ports
+(ROADMAP.md, port queues A7-A9) and are refused.
 """
 
 from __future__ import annotations
@@ -45,7 +55,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, reduced
 from repro_torch.configs.registry import get_config
 from repro_torch.core.cim_linear import CiMConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, synchronize
 from repro_torch.models import build_model
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
@@ -86,37 +96,103 @@ def parse_fabric_mesh(spec: str) -> tuple:
     return data, model
 
 
-def validation_matmul(fabric, device="cuda") -> torch.Tensor:
-    """The fabric validation pass of ``serve --fabric`` on one chip: a
-    (2, rows) @ (rows, cols) matmul of ``normal(PRNGKey(0))`` and
-    ``normal(fold_in(PRNGKey(0), 1))`` draws through the bit-plane fabric
-    executor (4/4 bits, the fabric's ADC and rows) on ``device``. On one chip
-    the JAX package's sharded executor is this matmul bit for bit."""
+def validation_matmul(fabric, device="cuda", chip_mesh=None, backend: str = "sequential") -> torch.Tensor:
+    """The fabric validation pass of ``serve --fabric``: a
+    ``(2·data, model·rows) @ (model·rows, cols)`` matmul of
+    ``normal(PRNGKey(0))`` and ``normal(fold_in(PRNGKey(0), 1))`` draws
+    through the sharded bit-plane executor (4/4 bits, the fabric's ADC and
+    rows) on ``backend``, on ``device``; the JAX package's validation matmul
+    bit for bit. ``chip_mesh`` defaults to one chip of ``fabric``."""
     from repro_torch.core import prng
-    from repro_torch.fabric import execute_matmul, map_matmul
+    from repro_torch.fabric import ChipMeshConfig, execute_sharded_matmul, map_matmul, shard_placement
 
     device = resolve_device(device)
-    m, k, n = 2, fabric.rows, fabric.cols
+    cm = chip_mesh if chip_mesh is not None else ChipMeshConfig(fabric=fabric)
+    m, k, n = 2 * cm.data, cm.model * fabric.rows, fabric.cols
     key = prng.PRNGKey(0, device)
     x = prng.normal(key, (m, k))
     w = prng.normal(prng.fold_in(key, 1), (k, n))
     cim = CiMConfig(mode="bitplane", a_bits=4, w_bits=4, adc_bits=fabric.adc_bits, rows=fabric.rows, ste=False)
-    return execute_matmul(x, w, fabric, cim, placement=map_matmul("smoke", m, k, n, fabric, cim=cim))
+    sp = shard_placement(map_matmul("smoke", m, k, n, fabric), cm)
+    return execute_sharded_matmul(x, w, cm, cim, sharded=sp, backend=backend)
 
 
-def fabric_rollup(cfg: ModelConfig, fabric, tokens: int, device="cuda") -> dict:
-    """Map ``cfg`` onto one chip's ``fabric`` for one batched forward pass
-    of ``tokens`` tokens and roll it up (``fabric_report``), run the
-    validation pass (:func:`validation_matmul`) and record the execution
-    backend: on one chip it is the sequential chip loop, as the JAX
-    package's ``auto`` resolves it."""
-    from repro_torch.fabric import fabric_report, map_model
+def _program_validation(cfg: ModelConfig, chip_mesh, tokens: int, backend: str, device: torch.device) -> dict:
+    """``serve --fabric-program``: the fused forward over one block's
+    residual chain (bit-plane, 4/4 bits) against the per-layer loop, and
+    ``measure_forward``'s measured-vs-modeled link time. Prints one line and
+    returns ``measure_forward``'s dict, with the fused forward's largest
+    difference from the loop as ``max_abs_diff_vs_per_layer``."""
+    from repro_torch.core import prng
+    from repro_torch.fabric import compile_forward, measure_forward
 
-    rollup = fabric_report(map_model(cfg, fabric, tokens=tokens), fabric)
-    validation_matmul(fabric, device)
-    rollup["exec_backend"] = "sequential"
-    n_dev = torch.cuda.device_count() if resolve_device(device).type == "cuda" else 1
-    print(f"[serve] fabric exec backend: sequential ({n_dev} {resolve_device(device).type} device(s) for 1 chip(s))")
+    fb = chip_mesh.fabric
+    val_cim = CiMConfig(mode="bitplane", a_bits=4, w_bits=4, adc_bits=fb.adc_bits, rows=fb.rows, ste=False)
+    prog = compile_forward(cfg, chip_mesh, cim=val_cim, backend=backend, tokens=tokens, block_only=True)
+    xp = prog.example_input(prng.PRNGKey(2, device))
+    wsp = prog.random_weights(prng.PRNGKey(3, device))
+    maxdiff = float((prog(xp, wsp) - prog.reference_forward(xp, wsp, backend="sequential")).abs().max())
+    # reference baseline on the sequential loop: the auto-fallback path, and
+    # cheap enough to keep serving startup interactive
+    measured = measure_forward(prog, x=xp, weights=wsp, iters=1, per_layer_backend="sequential", per_layer_iters=1)
+    measured["max_abs_diff_vs_per_layer"] = maxdiff
+    mc = measured.get("measured_collective_s")
+    print(
+        f"[serve] fused chain: {prog.n_layers}-layer block on {prog.backend}"
+        + (f" (fallback: {'; '.join(prog.problems)})" if prog.problems else "")
+        + f", maxdiff {maxdiff:.2e} vs per-layer loop; collectives "
+        + (f"{mc*1e3:.3g} ms wall" if mc is not None else "n/a")
+        + f" vs modeled link {measured['modeled_link_s']*1e3:.3g} ms"
+    )
+    return measured
+
+
+def fabric_rollup(
+    cfg: ModelConfig,
+    fabric,
+    tokens: int,
+    device="cuda",
+    mesh: tuple = (1, 1),
+    backend: str = "auto",
+    program: bool = False,
+) -> dict:
+    """Map ``cfg`` onto the fabric for one batched forward pass of
+    ``tokens`` tokens and roll it up: one chip's ``fabric_report``, or the
+    ``(data, model)`` ``mesh``'s ``sharded_fabric_report``. Then resolve the
+    execution backend against the real placements (one layer with a
+    replication fallback keeps the whole pass sequential, and an explicit
+    ``shard_map`` fails on it), run the validation pass
+    (:func:`validation_matmul`) on it and record it as ``exec_backend``.
+    ``program`` adds the fused chain's validation
+    (``program_validation``)."""
+    from repro_torch.fabric import (
+        ChipMeshConfig,
+        fabric_report,
+        map_matmul,
+        map_model,
+        resolve_backend,
+        shard_model,
+        shard_placement,
+        sharded_fabric_report,
+    )
+
+    device = resolve_device(device)
+    cm = ChipMeshConfig(data=mesh[0], model=mesh[1], fabric=fabric)
+    if cm.n_chips > 1:
+        sps = shard_model(cfg, cm, tokens=tokens)
+        rollup = sharded_fabric_report(sps, cm)
+    else:
+        sps = []
+        rollup = fabric_report(map_model(cfg, fabric, tokens=tokens), fabric)
+    smoke = shard_placement(map_matmul("smoke", 2 * cm.data, cm.model * fabric.rows, fabric.cols, fabric), cm)
+    resolved = {resolve_backend(p, backend) for p in sps or [smoke]}
+    exec_backend = "sequential" if "sequential" in resolved else "shard_map"
+    validation_matmul(fabric, device, chip_mesh=cm, backend=exec_backend)
+    rollup["exec_backend"] = exec_backend
+    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+    print(f"[serve] fabric exec backend: {exec_backend} ({n_dev} {device.type} device(s) for {cm.n_chips} chip(s))")
+    if program:
+        rollup["program_validation"] = _program_validation(cfg, cm, tokens, backend, device)
     return rollup
 
 
@@ -127,11 +203,6 @@ class ServeSettings:
     gen_len: int = 32
     seed: int = 0
     greedy: bool = True
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def serve_batch(
@@ -168,13 +239,13 @@ def serve_batch(
     total = s + st.gen_len
 
     with torch.inference_mode():
-        _sync(device)
+        synchronize(device)
         t0 = time.time()
         with obs_trace.span("serve.prefill", batch=b, prompt_len=s):
             cache = model.make_cache(b, total)
             logits, cache = model.prefill(params, torch.as_tensor(prompts, device=device), cache)
             next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-            _sync(device)
+            synchronize(device)
         t_prefill = time.time() - t0
 
         out_tokens = [next_tok]
@@ -184,7 +255,7 @@ def serve_batch(
                 logits, cache = model.decode_step(params, next_tok, s + i, cache)
                 next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
                 out_tokens.append(next_tok)
-            _sync(device)
+            synchronize(device)
         t_decode = time.time() - t0
 
     obs_metrics.inc("serve_requests_total", b, help="Requests served (batch slots).")
@@ -227,19 +298,33 @@ def _fabric_request_cost(rollup: dict, b: int, s: int, gen_len: int, total: int)
     }
     if obs_metrics.active():
         # the per-request observability summary line: live counters from the
-        # registry replace the static cost-model printout. The one-chip port
-        # writes the conversions (fabric executor) and EMA bits (here); the
-        # JAX line's fused/fallback and link counters wait for their
-        # producers (ROADMAP.md, port queues A6-A8)
+        # registry (fed by the fabric layers + the validation pass) replace
+        # the static cost-model printout
         obs_metrics.inc(
             "fabric_ema_bits_total", fab["onchip_ema_bits_per_request"] * b,
             help="On-chip external-memory-access bits for requests served.",
         )
+        fused = obs_metrics.get_value("fabric_requests_total", path="fused")
+        fell = obs_metrics.get_value("fabric_requests_total", path="fallback")
         conv = obs_metrics.get_value("fabric_conversions_total")
-        obs_trace.event("serve.request_summary", batch=b, total_tokens=total, conversions=conv)
+        bits = obs_metrics.get_value("fabric_link_bits_total")
+        modeled = obs_metrics.get_value("fabric_modeled_link_seconds")
+        measured = obs_metrics.get_value("fabric_measured_collective_seconds")
+        calib = obs_metrics.get_value("fabric_link_clock_calibration")
+        obs_trace.event(
+            "serve.request_summary", batch=b, total_tokens=total,
+            fused_requests=fused, fallback_requests=fell,
+            conversions=conv, link_bits=bits,
+            modeled_link_s=modeled, measured_collective_s=measured,
+            link_clock_calibration=calib,
+        )
         print(
             f"[serve] obs batch {b}x{total} tok on {fab['n_chips']} chip(s) "
-            f"[{fab['exec_backend']}]: {conv:.3g} conversions; est. "
+            f"[{fab['exec_backend']}]: fused {fused:.0f} / fallback "
+            f"{fell:.0f} requests; {conv:.3g} conversions, "
+            f"{bits:.3g} link bits; link modeled {modeled:.3g} s vs "
+            f"measured {measured:.3g} s "
+            f"(link_clock_calibration {calib:.3g}); est. "
             f"{fab['latency_s_per_request']*1e3:.3g} ms, "
             f"{fab['energy_uj_per_request']:.3g} uJ per request"
         )
@@ -268,47 +353,34 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument(
         "--fabric", default=None, choices=[None, "pair_sar", "flash", "hybrid"],
-        help="also map the model onto one chip's CiM fabric and print the "
+        help="also map the model onto a CiM fabric (one chip or a chip mesh) and print the "
         "area/energy/latency/EMA rollup (repro_torch.fabric)",
     )
     ap.add_argument("--fabric-arrays", type=int, default=256)
     ap.add_argument(
         "--fabric-chips", type=int, default=1, choices=[1, 4, 16],
-        help="chips of the fabric mesh; the port runs 1 (4 and 16 wait for ROADMAP.md A6)",
+        help="square-mesh sugar for --fabric-mesh (1 -> 1x1, 4 -> 2x2, 16 -> 4x4; repro_torch.fabric.shard)",
     )
     ap.add_argument(
         "--fabric-mesh", default=None, metavar="DxM",
-        help="explicit (data x model) chip mesh; the port runs 1x1 (larger meshes wait for ROADMAP.md A6)",
+        help="explicit (data x model) chip mesh, e.g. 2x4; overrides the --fabric-chips sugar "
+        "(passing both is an error)",
     )
     ap.add_argument(
         "--fabric-backend", default="auto", choices=["auto", "sequential", "shard_map"],
-        help="chip execution backend of the validation pass: on one chip auto "
-        "is sequential (shard_map waits for ROADMAP.md A6)",
+        help="chip execution backend of the validation pass, as the JAX package resolves it: "
+        "sequential, shard_map, or auto (shard_map on a mesh without replication fallbacks; "
+        "repro_torch.fabric.resolve_backend); every chip runs on the one device, in one chip loop",
     )
-    for flag, queue in (("--fabric-program", "A7"), ("--fabric-scan", "A7"), ("--fabric-autotune", "A8")):
+    ap.add_argument(
+        "--fabric-program", action="store_true",
+        help="run the fused forward over one block's residual chain (repro_torch.fabric.compile_forward) "
+        "as a validation pass and report measured-vs-modeled link latency (mamba and hybrid families; "
+        "dense and moe wait for ROADMAP.md A7)",
+    )
+    for flag, queue in (("--fabric-scan", "A7"), ("--fabric-autotune", "A8")):
         ap.add_argument(flag, action="store_true", help=f"waits for ROADMAP.md {queue}")
     args = ap.parse_args(argv)
-    mesh = (1, 1)
-    if args.fabric_mesh:
-        try:
-            mesh = parse_fabric_mesh(args.fabric_mesh)
-        except ValueError as e:
-            ap.error(str(e))
-    unported = [
-        name for name, given in (
-            (f"--fabric-chips {args.fabric_chips}", args.fabric_chips > 1),
-            (f"--fabric-mesh {args.fabric_mesh}", mesh != (1, 1)),
-            ("--fabric-backend shard_map", args.fabric_backend == "shard_map"),
-            ("--fabric-program", args.fabric_program),
-            ("--fabric-scan", args.fabric_scan),
-            ("--fabric-autotune", args.fabric_autotune),
-        ) if given
-    ]
-    if unported:
-        ap.error(
-            f"{', '.join(unported)}: the port serves one chip; meshes, the fused program "
-            "and graph and the autotuner wait for their ports (ROADMAP.md, port queues A6-A9)"
-        )
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -318,14 +390,48 @@ def main(argv=None):
     st = ServeSettings(
         batch=args.batch, prompt_len=args.prompt_len, gen_len=args.gen_len, seed=args.seed
     )
+    # the JAX serve CLI's argument checks, in its order
+    if (args.fabric_chips > 1 or args.fabric_mesh or args.fabric_program or args.fabric_autotune) and not args.fabric:
+        ap.error("--fabric-chips/--fabric-mesh/--fabric-program/--fabric-autotune require --fabric")
+    if args.fabric_autotune and cfg.family not in ("dense", "moe"):
+        ap.error(f"--fabric-autotune needs a matmul-graph family (dense/moe); {args.arch} is {cfg.family!r}")
+    if args.fabric_scan and not args.fabric_program:
+        ap.error("--fabric-scan requires --fabric-program")
+    if args.fabric_scan and cfg.family not in ("dense", "moe"):
+        ap.error(f"--fabric-scan needs a matmul-graph family (dense/moe); {args.arch} is {cfg.family!r}")
+    if args.fabric_mesh and args.fabric_chips > 1:
+        ap.error("pass either --fabric-mesh or the --fabric-chips sugar, not both")
+    unported = [
+        name for name, given in (
+            (f"--fabric-program on the {cfg.family} family (the fused forward graph, A7)",
+             args.fabric_program and cfg.family in ("dense", "moe")),
+            ("--fabric-scan (A7)", args.fabric_scan),
+            ("--fabric-autotune (A8)", args.fabric_autotune),
+        ) if given
+    ]
+    if unported:
+        ap.error(f"{', '.join(unported)}: not ported yet (ROADMAP.md, port queues A7-A8)")
+    if args.fabric_mesh:
+        try:
+            mesh = parse_fabric_mesh(args.fabric_mesh)
+        except ValueError as e:
+            ap.error(str(e))
+    else:
+        side = {1: 1, 4: 2, 16: 4}[args.fabric_chips]
+        mesh = (side, side)
+
     rollup = None
     if args.fabric:
         from repro_torch.fabric import FabricConfig
 
-        # map BEFORE serving so the batching log line carries the per-request
-        # fabric cost; one mapped pass covers the lock-step batch (tokens = batch)
+        # map (and shard) BEFORE serving so the batching log line carries the
+        # per-request fabric cost; one mapped pass covers the lock-step batch
+        # (tokens = batch), which is what lets the mesh's data axis split work
         fabric = FabricConfig(mode=args.fabric, n_arrays=args.fabric_arrays)
-        rollup = fabric_rollup(cfg, fabric, st.batch, args.device)
+        rollup = fabric_rollup(
+            cfg, fabric, st.batch, args.device, mesh=mesh, backend=args.fabric_backend,
+            program=args.fabric_program,
+        )
     out = serve_batch(cfg, st, device=args.device, fabric_rollup=rollup)
     print(
         f"[serve] {args.arch} on {args.device}: prefill {out['prefill_s']*1e3:.1f} ms, "
@@ -338,6 +444,7 @@ def main(argv=None):
 
         print()
         print(render_markdown(rollup))
+    return out
 
 
 if __name__ == "__main__":

@@ -1,7 +1,19 @@
-"""repro_torch.obs — host-side telemetry of the PyTorch port: spans, metrics
-and their sinks (pure-Python copies of ``repro.obs.trace``,
-``repro.obs.metrics`` and ``repro.obs.sinks``)."""
+"""repro_torch.obs — host-side telemetry of the PyTorch port: spans, metrics,
+their sinks and the fallback taxonomy (pure-Python copies of
+``repro.obs.trace``, ``repro.obs.metrics``, ``repro.obs.sinks`` and
+``repro.obs.fallback``)."""
 
+from repro_torch.obs.fallback import (
+    FALLBACK_REASONS,
+    REASON_INELIGIBLE,
+    REASON_INSUFFICIENT_DEVICES,
+    REASON_NO_BUCKET,
+    REASON_RAGGED_BATCH,
+    REASON_REPLICATION_FALLBACK,
+    REASON_REQUESTED_SEQUENTIAL,
+    classify_fallback,
+    record_fallback,
+)
 from repro_torch.obs.metrics import (
     Counter,
     Gauge,
@@ -37,4 +49,13 @@ __all__ = [
     "JsonlSink",
     "read_jsonl",
     "write_prometheus",
+    "REASON_RAGGED_BATCH",
+    "REASON_INSUFFICIENT_DEVICES",
+    "REASON_REPLICATION_FALLBACK",
+    "REASON_REQUESTED_SEQUENTIAL",
+    "REASON_INELIGIBLE",
+    "REASON_NO_BUCKET",
+    "FALLBACK_REASONS",
+    "classify_fallback",
+    "record_fallback",
 ]

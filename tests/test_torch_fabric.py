@@ -193,7 +193,8 @@ def test_fabric_report_and_markdown_match_jax(mode, request):
 
 def test_render_markdown_of_a_mesh_report_matches_jax():
     """The port renders the JAX package's mesh sections (cross-chip columns,
-    graph, overlap) as it does, though its producers wait for A6/A7."""
+    graph, overlap) as it does, though the graph section's producer waits
+    for A7."""
     cm = jfab.ChipMeshConfig(model=2, fabric=jfab.FabricConfig(mode="hybrid", n_arrays=60))
     sps = jfab.shard_model(j_get_config("smollm-135m"), cm, tokens=4, block_only=True)
     rep = jfab.sharded_fabric_report(sps, cm, graph=jfab.model_forward_graph(j_get_config("smollm-135m"), 4, True))
@@ -354,20 +355,31 @@ def test_serve_batch_fabric_rollup_matches_jax(capsys):
         tserve.serve_batch(cfg_t, st_t, device="cpu", fabric_rollup=rollup_t)
         assert reg.snapshot()["fabric_ema_bits_total"]
     line_j, line_t = capsys.readouterr().out.splitlines()
-    # the port's line leaves out the link and fused/fallback counters, which
-    # nothing writes on one chip; the conversions and the estimate are JAX's
+    # the JAX package's line: fused/fallback requests, conversions, link bits
+    # and gauges (none written here), and the estimate
     assert line_t.startswith("[serve] obs batch 2x11 tok on 1 chip(s) [sequential]: ")
+    assert line_t == line_j
     assert line_t.split(" est. ")[1] == line_j.split(" est. ")[1]
     conversions = re.compile(r"(\S+) conversions")
     assert conversions.search(line_t).group(1) == conversions.search(line_j).group(1)
 
 
-@pytest.mark.parametrize("flags", [["--fabric-chips", "4"], ["--fabric-mesh", "2x2"], ["--fabric-program"],
-                                   ["--fabric-scan"], ["--fabric-autotune"], ["--fabric-backend", "shard_map"]])
+@pytest.mark.parametrize("flags", [["--fabric-chips", "4", "--fabric-mesh", "2x2"], ["--fabric-mesh", "2x2", "--fabric-program"],
+                                   ["--fabric-program"], ["--fabric-scan", "--fabric-program"], ["--fabric-autotune"],
+                                   ["--fabric-backend", "shard_map", "--fabric-chips", "4", "--fabric-program"]])
 def test_serve_cli_refuses_what_waits_for_a_mesh(flags, capsys):
+    """Meshes and the ``shard_map`` backend serve (``tests/test_torch_shard.py``);
+    what still waits is refused, naming its queue: the fused graph program
+    of a dense model (A7), the scan (A7) and the autotuner (A8). Both mesh
+    flags at once are the JAX CLI's error."""
     with pytest.raises(SystemExit):
         tserve.main(["--arch", "smollm-135m", "--device", "cpu", "--fabric", "hybrid"] + flags)
-    assert "ROADMAP.md, port queues A6-A9" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    if "--fabric-chips" in flags and "--fabric-mesh" in flags:
+        assert "pass either --fabric-mesh or the --fabric-chips sugar, not both" in err
+    else:
+        assert "ROADMAP.md, port queues A7-A8" in err
+        assert ("A8" if "--fabric-autotune" in flags else "A7") in err.split(": not ported yet")[0]
 
 
 def test_parse_fabric_mesh_and_the_one_chip_backend():
