@@ -111,7 +111,30 @@ Phases, in order; any failure raises and the script exits non-zero:
     --fabric-chips 4 --fabric-backend shard_map`` and on mamba2-130m with
     ``--fabric-mesh 1x2 --fabric-program`` (fake_quant, batch 4, prompt 256,
     16 tokens): backend ``shard_map``, prefill s, decode tokens/s;
-16. ``[serve-moe]``: qwen3-moe-30b-a3b at full width (d 2048, 32/4 heads
+16. ``[graph]``: the fused full-block graph (``compile_graph_forward``,
+    fake_quant, weights ``random_weights`` scaled by 1/sqrt(K)):
+    smollm-135m whole (211 matmul nodes) at batch 4 x seq 64 on 1x1 and
+    1x3, K1 exactly 211 x chips launches, the collective census equal to
+    the budget, equal bit for bit to the per-node loop; the scan form on 1x3 equal bit for
+    bit to the unrolled form; ``measure_forward``'s fused,
+    collectives-stripped and per-node seconds; qwen3-moe-30b-a3b cut to 8
+    layers (65 nodes) on 1x4, 260 launches, equal to its loop; smollm on 2x2 resolving to
+    ``sequential`` with its head-divisibility reason; the reduced smollm's
+    noisy bit-plane graph (comparator sigma 0.02) on the card within
+    ``GRAPH_TOL`` of the same program on the CPU;
+17. ``[autotune]``: the autotuner's plan for smollm-135m on 3 chips
+    (request batches 1..8) equal to the recorded ``SMOLLM_PLAN_3``; its
+    ``BucketedGraphCache`` on every batch 1..8 (seq 64), each held to the
+    per-node reference on its real rows bit for bit, the hit, miss and
+    pad-waste counters as the code gives them; then a cache with the coarse
+    buckets (2, 4, 8) on the same batches, so that five of them are
+    zero-padded, each held bit for bit to the unpadded per-node reference,
+    its pad-waste counter equal to the 8 pad rows;
+18. ``[serve-graph]``: ``serve.main`` on smollm-135m with ``--fabric
+    hybrid --fabric-mesh 1x3`` and ``--fabric-program``, ``--fabric-program
+    --fabric-scan`` and ``--fabric-autotune`` (fake_quant, batch 4, prompt
+    256, 16 tokens; the validation passes bit-plane): K1 exactly 3,360, K2 0;
+19. ``[serve-moe]``: qwen3-moe-30b-a3b at full width (d 2048, 32/4 heads
     of 128, 128 experts top 8, d_ff_expert 768, vocab 151936), 8 of its 48
     layers, bf16 compute, fake_quant + flash, seeded random weights in the
     JAX init's dtypes; one set of weights served with ``moe_impl="dense"``
@@ -119,26 +142,27 @@ Phases, in order; any failure raises and the script exits non-zero:
     launch exactly 32 (dense) or 3,104 (scatter) times a forward, K2 8
     times at prefill; prefill s, decode tokens/s, peak device memory, and a
     profile of the dense call;
-17. ``[serve-mamba]``: mamba2-130m at full width and depth (24 layers, d
+20. ``[serve-mamba]``: mamba2-130m at full width and depth (24 layers, d
     768, 24 SSM heads of 64, state 128), fake_quant, batch 4, prompt 512
     (two SSD chunks), 16 tokens: K1 exactly 144 a forward, no K2; profiled;
-18. ``[serve-hybrid]``: zamba2-7b at full width (d 3584, 112 SSM heads,
+21. ``[serve-hybrid]``: zamba2-7b at full width (d 3584, 112 SSM heads,
     state 64, shared block 32 heads of 112, d_ff 14336), 13 of its 81
     layers (two groups of 6 and one tail layer), fake_quant + flash, batch
     4, prompt 512, 16 tokens: K1 exactly 92 a forward, K2 2; profiled;
-19. ``[k1-served]``: K1 against its plain version (``torch.equal``) at
-    every (M, K, N) that phases 4 and 13-18 gave it, recorded as they ran:
+22. ``[k1-served]``: K1 against its plain version (``torch.equal``) at
+    every (M, K, N) that phases 4 and 13-21 gave it, recorded as they ran:
     each linear at its full M (prefill batch x prompt, decode batch, an
     expert's capacity, a chip's block), on random int8 operands; the plain
     version runs in row blocks, as rows are independent at a fixed step.
     The shapes named for the new families (N 24, K 7168, expert M 8 and
-    80) and for the mesh (a 2x2 chip's M 512 K 288, the 1x4 unembed's K 144
-    N 49152) must be among them;
-20. ``[agree-moe]`` (both ``moe_impl``), ``[agree-mamba]``,
+    80), for the mesh (a 2x2 chip's M 512 K 288, the 1x4 unembed's K 144
+    N 49152) and for the graph (a 1x3 chip's M 256 K 192 N 576, the
+    qwen3-moe router's K 512 N 128 on 1x4) must be among them;
+23. ``[agree-moe]`` (both ``moe_impl``), ``[agree-mamba]``,
     ``[agree-hybrid]``: phase 6 on the reduced float32 configs, with the
     routed experts compared first (a differing choice is printed as a
     routing flip with its probability margin);
-21. the host seconds each group of phases took (``[time]``), one JSON line
+24. the host seconds each group of phases took (``[time]``), one JSON line
     of every kernel with its launches (from phase 4; per path in
     ``launches_by_path``), times and bound, the card's line again, and the
     final ``{"ok": true, ...}`` line.
@@ -170,6 +194,13 @@ FP32_FLOPS = 67e12
 
 SLEEP_CYCLES = 1 << 25  # ~17 ms of device sleep ahead of each timed batch
 
+# The autotuner's plan for smollm-135m on 3 chips (hybrid, 256 arrays a chip),
+# request batches 1..8, fake_quant: host arithmetic, the same on every machine
+# (the JAX package's plan; tests/test_torch_autotune.py holds the CPU to it).
+SMOLLM_PLAN_3 = {"data": 1, "model": 3, "buckets": (1, 2, 3, 4, 5, 6, 7, 8),
+                 "expected_latency_s": 5.012692991999999, "baseline_latency_s": 8.911454207999983, "searched": 5}
+# Buckets that pad five of the request batches 1..8 (8 rows in all).
+COARSE_BUCKETS = (2, 4, 8)
 # K1 shapes of one layer's seven linears (K, N): q, k, v, o, gate, up, down.
 LAYER_LINEARS = [(576, 576), (576, 192), (576, 192), (576, 576), (576, 1536), (576, 1536), (1536, 576)]
 
@@ -395,7 +426,8 @@ def k1_served_phase(torch, cmm, shapes: dict) -> float:
     served = {(m, k, n) for m, k, n, *_ in shapes}
     named = {"N 24": any(n == 24 for _, _, n in served), "K 7168": any(k == 7168 for _, k, _ in served),
              "expert M 80": any(m == 80 for m, _, _ in served), "expert M 8": any(m == 8 for m, _, _ in served),
-             "shard M 512 K 288": (512, 288, 576) in served, "program K 144 N 49152": (4, 144, 49152) in served}
+             "shard M 512 K 288": (512, 288, 576) in served, "program K 144 N 49152": (4, 144, 49152) in served,
+             "graph 1x3 M 256 K 192": (256, 192, 576) in served, "graph router K 512 N 128": (256, 512, 128) in served}
     if not all(named.values()):
         raise AssertionError(f"the serve paths gave K1 none of {[s for s, ok in named.items() if not ok]}")
     print(f"[k1-served] {len(shapes)} served shapes, among them {', '.join(named)}: all bit-exact "
@@ -1294,6 +1326,243 @@ def serve_shard_phase(torch, cmm, fa):
     return runs
 
 
+GRAPH_TOL = 1e-6  # the card's graph against the CPU's (torch's CUDA exp/rsqrt/sigmoid): of max|logit|
+
+
+def _graph_weights(prog, key):
+    """``random_weights`` with each matmul weight scaled by 1/sqrt(K), so a
+    whole model's residual stream stays in range; norm scales as drawn."""
+    return {name: w / w.shape[-2] ** 0.5 if w.dim() >= 2 else w for name, w in prog.random_weights(key).items()}
+
+
+def graph_phase(torch, cmm):
+    """The fused full-block graph (``fabric.compile_graph_forward``) at full
+    width, fake_quant: smollm-135m whole (211 matmul nodes) at batch 4 x seq
+    64 on 1x1 and 1x3, unrolled and scanned; qwen3-moe-30b-a3b cut to 8
+    layers (65 nodes) on 1x4; smollm on 2x2, sequential for its 9/3 heads;
+    the noisy bit-plane graph of the reduced smollm config on the card
+    against the CPU; ``measure_forward``. K1 launches exactly ``nodes x
+    chips`` a forward, the census is the budget, the fused graph equals its
+    per-node loop and the scan form the unrolled one."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import prng
+    from repro_torch.core.cim_linear import CiMConfig
+    from repro_torch.fabric import ChipMeshConfig, FabricConfig, compile_graph_forward, measure_forward
+    from repro_torch.fabric.collectives import census
+    from repro_torch.fabric.graph import _stack_layer_weights
+
+    fb = FabricConfig(mode="hybrid", n_arrays=256)
+    cim = CiMConfig(mode="fake_quant", ste=False)
+    out = {}
+
+    def fused(tag, prog, x, ws, want_nodes):
+        d, m = prog.chip_mesh.data, prog.chip_mesh.model
+        if prog.backend != "shard_map" or prog.n_layers != want_nodes:
+            raise AssertionError(f"[graph] {tag}: backend {prog.backend}, {prog.n_layers} nodes, {prog.problems}")
+        cmm.launches = 0
+        with census() as counts:
+            y = prog(x, ws)
+        torch.cuda.synchronize()
+        launches = cmm.launches
+        if launches != want_nodes * d * m or counts != prog.collective_budget():
+            raise AssertionError(f"[graph] {tag}: {launches} K1 launches (want {want_nodes * d * m}), census "
+                                 f"{counts} (want {prog.collective_budget()})")
+        if not bool(torch.isfinite(y).all()) or tuple(y.shape) != (*x.shape[:2], prog.n_out):
+            raise AssertionError(f"[graph] {tag}: output {tuple(y.shape)}, finite {bool(torch.isfinite(y).all())}")
+        return y, launches, counts
+
+    def held(tag, y, y_ref, exact):
+        diff = float((y - y_ref).abs().max())
+        scale = float(y_ref.abs().max())
+        if not (torch.equal(y, y_ref) if exact else diff <= GRAPH_TOL * scale):
+            raise AssertionError(f"[graph] {tag}: {diff:.3g} off the reference (max|y| {scale:.3g})")
+        return diff, scale
+
+    smollm = get_config("smollm-135m")
+    x = prng.normal(prng.PRNGKey(0, "cuda"), (4, 64, smollm.d_model))
+    ws = None
+    for d, m in ((1, 1), (1, 3)):
+        t0 = time.time()
+        prog = compile_graph_forward(smollm, ChipMeshConfig(data=d, model=m, fabric=fb), cim, tokens=256)
+        t_plan = time.time() - t0
+        if ws is None:
+            ws = _graph_weights(prog, prng.PRNGKey(1, "cuda"))
+        y, launches, counts = fused(f"smollm {d}x{m}", prog, x, ws, 211)
+        held(f"smollm {d}x{m} vs per-node loop", y, prog.reference_forward(x, ws), exact=True)
+        entry = {"launches": launches, "census": counts}
+        line = (f"[graph] smollm-135m whole (211 matmul nodes, full width), batch 4 x seq 64, fake_quant, {d}x{m} "
+                f"({t_plan:.2f} s host to plan): {launches} K1 launches (= 211 x {d * m} chips), census {counts}; "
+                f"equal bit for bit to the per-node loop")
+        if m == 3:
+            scan = compile_graph_forward(smollm, prog.chip_mesh, cim, tokens=256, scan_layers=True)
+            y_scan, scan_launches, scan_counts = fused("smollm 1x3 scanned", scan, x,
+                                                       _stack_layer_weights(ws, smollm.n_layers), 211)
+            if not torch.equal(y_scan, y):
+                raise AssertionError("[graph] smollm 1x3: the scan form differs from the unrolled form")
+            meas = measure_forward(prog, x=x, weights=ws, iters=3, per_layer_backend="sequential", per_layer_iters=2)
+            entry.update(scan_launches=scan_launches, **{k: meas[k] for k in (
+                "fused_s", "local_s", "per_layer_s", "measured_collective_s", "modeled_link_s",
+                "link_clock_calibration")})
+            calib = meas["link_clock_calibration"]
+            line += (f"; the scan form ({scan_launches} K1 launches, census {scan_counts}) equal bit for bit to the "
+                     f"unrolled form; fused {meas['fused_s'] * 1e3:.3f} ms, collectives stripped "
+                     f"{meas['local_s'] * 1e3:.3f} ms, per-node loop {meas['per_layer_s'] * 1e3:.3f} ms (host clock, "
+                     f"synchronized, best of 3 and 2); modeled link {meas['modeled_link_s'] * 1e3:.6g} ms, "
+                     f"link_clock_calibration {'n/a' if calib is None else f'{calib:.6g}'}")
+        out[f"smollm {d}x{m}"] = entry
+        print(line)
+    two = compile_graph_forward(smollm, ChipMeshConfig(data=2, model=2, fabric=fb), cim, tokens=256)
+    if two.backend != "sequential" or "heads 9/3 (q/kv) do not divide the model axis (2)" not in two.problems[0]:
+        raise AssertionError(f"[graph] smollm 2x2: backend {two.backend}, problems {two.problems[:1]}")
+    print(f"[graph] smollm-135m on 2x2 resolves to sequential: {two.problems[0]}")
+
+    moe = dataclasses.replace(get_config("qwen3-moe-30b-a3b"), n_layers=8)
+    prog = compile_graph_forward(moe, ChipMeshConfig(model=4, fabric=fb), cim, tokens=256)
+    xm = prng.normal(prng.PRNGKey(0, "cuda"), (4, 64, moe.d_model))
+    wm = _graph_weights(prog, prng.PRNGKey(1, "cuda"))
+    y, launches, counts = fused("qwen3-moe 1x4", prog, xm, wm, 65)
+    held("qwen3-moe 1x4 vs per-node loop", y, prog.reference_forward(xm, wm), exact=True)
+    out["qwen3-moe 1x4"] = {"launches": launches, "census": counts}
+    print(f"[graph] qwen3-moe-30b-a3b, 8 of 48 layers (65 matmul nodes: q, k, v, o, router, expert0's three, "
+          f"unembed), batch 4 x seq 64, fake_quant, 1x4: {launches} K1 launches (= 65 x 4 chips), census {counts}; "
+          f"equal bit for bit to the per-node loop")
+    del wm
+
+    small = reduced(smollm)
+    noisy = CiMConfig(mode="bitplane", a_bits=4, w_bits=4, rows=16, adc_bits=5, comparator_sigma=0.02, ste=False)
+    prog = compile_graph_forward(small, ChipMeshConfig(fabric=fb), noisy, tokens=8)
+    xs = prng.normal(prng.PRNGKey(2), (2, 4, small.d_model))
+    wsm = prog.random_weights(prng.PRNGKey(3))
+    key = prng.PRNGKey(4)
+    t0 = time.time()
+    y_card = prog(xs.cuda(), {k: v.cuda() for k, v in wsm.items()}, key=key)
+    torch.cuda.synchronize()
+    t_card = time.time() - t0
+    t0 = time.time()
+    y_cpu = prog(xs, wsm, key=key)
+    t_cpu = time.time() - t0
+    diff, scale = held("reduced noisy 1x1 card vs CPU", y_card.cpu(), y_cpu, exact=False)
+    out["reduced noisy"] = {"card_s": t_card, "cpu_s": t_cpu, "max_abs_diff_vs_cpu": diff}
+    print(f"[graph] reduced smollm-135m ({small.n_layers} layers, d {small.d_model}), noisy bitplane (4/4 bits, rows "
+          f"16, 5-bit SAR, comparator sigma 0.02, PRNGKey(4)), batch 2 x seq 4, 1x1: {t_card:.2f} s on the card, "
+          f"{t_cpu:.2f} s on the CPU, within {diff:.3g} of the CPU (max|y| {scale:.3g}; tolerance {GRAPH_TOL} of it)")
+    return out
+
+
+def autotune_phase(torch, cmm):
+    """The autotuner's plan for smollm-135m on 3 chips (request batches 1..8),
+    held to the recorded dict; then its ``BucketedGraphCache`` in fake_quant
+    on every batch 1..8 (seq 64), each held to the per-node reference on its
+    real rows (``torch.equal``), with the hit, miss and pad-waste
+    counters; then the same with ``COARSE_BUCKETS``, which pad five of the
+    batches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.core.cim_linear import CiMConfig
+    from repro_torch.fabric import BucketedGraphCache, ChipMeshConfig, FabricConfig, autotune_plan, request_histogram
+    from repro_torch.obs import metrics
+
+    cfg = get_config("smollm-135m")
+    fb = FabricConfig(mode="hybrid", n_arrays=256)
+    cim = CiMConfig(mode="fake_quant", ste=False)
+    t0 = time.time()
+    plan = autotune_plan(cfg, request_histogram(range(1, 9)), 3, fb, cim=cim)
+    t_plan = time.time() - t0
+    if dataclasses.asdict(plan) != SMOLLM_PLAN_3:
+        raise AssertionError(f"[autotune] plan {dataclasses.asdict(plan)} != {SMOLLM_PLAN_3}")
+    cache = BucketedGraphCache(cfg, ChipMeshConfig(data=plan.data, model=plan.model, fabric=fb), cim,
+                               buckets=plan.buckets, seq=64)
+    ws = _graph_weights(cache.program_for(plan.buckets[-1]), prng.PRNGKey(1, "cuda"))
+    launches = 0
+    with metrics.collecting() as reg:
+        for b in range(1, 9):
+            x = prng.normal(prng.PRNGKey(10 + b, "cuda"), (b, 64, cfg.d_model))
+            cmm.launches = 0
+            y = cache(x, ws)
+            torch.cuda.synchronize()
+            launches += cmm.launches
+            if cmm.launches != 211 * plan.data * plan.model:
+                raise AssertionError(f"[autotune] batch {b}: {cmm.launches} K1 launches")
+            y_ref = cache.program_for(cache.bucket_for(b)).reference_forward(x, ws)
+            if not torch.equal(y, y_ref) or not bool(torch.isfinite(y).all()):
+                raise AssertionError(f"[autotune] batch {b}: {float((y - y_ref).abs().max()):.3g} off the per-node "
+                                     f"reference")
+        counters = {name: reg.counter(name).value() for name in (
+            "fabric_bucket_hits_total", "fabric_bucket_misses_total", "fabric_pad_waste_rows_total")}
+    stats = cache.stats()
+    pad = sum(cache.bucket_for(b) - b for b in range(1, 9))
+    if (stats["hits"], stats["misses"], stats["pad_waste_rows"]) != (8, 0, pad) or counters != {
+            "fabric_bucket_hits_total": 8.0, "fabric_bucket_misses_total": 0.0, "fabric_pad_waste_rows_total": pad}:
+        raise AssertionError(f"[autotune] counters {counters}, stats {stats}")
+    print(f"[autotune] autotune_plan, smollm-135m on 3 chips, request batches 1..8, fake_quant ({t_plan:.2f} s host): "
+          f"{dataclasses.asdict(plan)}, the recorded plan; BucketedGraphCache on {plan.data}x{plan.model}, seq 64, "
+          f"batches 1..8: {launches} K1 launches (211 x {plan.data * plan.model} chips a batch), each batch equal bit "
+          f"for bit to the per-node reference on its real rows; counters {counters}; stats {stats}")
+    # The plan's buckets fit every batch exactly; coarse buckets pad all but
+    # three of them, so the pad rows, their mask and the rescaled stats run.
+    coarse = BucketedGraphCache(cfg, ChipMeshConfig(data=plan.data, model=plan.model, fabric=fb), cim,
+                                buckets=COARSE_BUCKETS, seq=64)
+    padded = 0
+    with metrics.collecting() as reg:
+        for b in range(1, 9):
+            x = prng.normal(prng.PRNGKey(20 + b, "cuda"), (b, 64, cfg.d_model))
+            cmm.launches = 0
+            y = coarse(x, ws)
+            torch.cuda.synchronize()
+            padded += cmm.launches
+            if cmm.launches != 211 * plan.data * plan.model:
+                raise AssertionError(f"[autotune] coarse batch {b}: {cmm.launches} K1 launches")
+            y_ref = coarse.program_for(coarse.bucket_for(b)).reference_forward(x, ws)
+            if y.shape != y_ref.shape or not torch.equal(y, y_ref) or not bool(torch.isfinite(y).all()):
+                raise AssertionError(f"[autotune] coarse batch {b} (bucket {coarse.bucket_for(b)}): "
+                                     f"{float((y - y_ref).abs().max()):.3g} off the unpadded per-node reference")
+        coarse_counters = {name: reg.counter(name).value() for name in (
+            "fabric_bucket_hits_total", "fabric_bucket_misses_total", "fabric_pad_waste_rows_total")}
+    coarse_stats = coarse.stats()
+    coarse_pad = sum(coarse.bucket_for(b) - b for b in range(1, 9))
+    if coarse_pad <= 0 or (coarse_stats["hits"], coarse_stats["misses"], coarse_stats["pad_waste_rows"]) != (
+            8, 0, coarse_pad) or coarse_counters != {"fabric_bucket_hits_total": 8.0, "fabric_bucket_misses_total": 0.0,
+                                                     "fabric_pad_waste_rows_total": coarse_pad}:
+        raise AssertionError(f"[autotune] coarse buckets: counters {coarse_counters}, stats {coarse_stats}")
+    print(f"[autotune] BucketedGraphCache on {plan.data}x{plan.model} with buckets {COARSE_BUCKETS}, seq 64, batches "
+          f"1..8: {padded} K1 launches, each padded batch equal bit for bit to the unpadded per-node reference; "
+          f"{coarse_pad} pad rows; counters {coarse_counters}; stats {coarse_stats}")
+    return {"launches": launches + padded, "plan": dataclasses.asdict(plan), "stats": stats,
+            "coarse_stats": coarse_stats}
+
+
+def serve_graph_phase(torch, cmm, fa):
+    """``serve`` with the fused graph through its CLI: smollm-135m on 1x3 with
+    ``--fabric-program`` (one block), ``--fabric-program --fabric-scan`` (the
+    whole model in the scan form) and ``--fabric-autotune``. The validation
+    passes run ``bitplane`` (the plain per-plane path), so K1 is held to the
+    model's count (7 linears x 30 layers x 16 forwards) and K2 to 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    runs = {}
+    for tag, flags in (("program", ["--fabric-program"]), ("scan", ["--fabric-program", "--fabric-scan"]),
+                       ("autotune", ["--fabric-autotune"])):
+        gen_len = 16
+        cmm.launches = fa.launches = 0
+        t0 = time.time()
+        out = serve.main(["--arch", "smollm-135m", "--cim", "fake_quant", "--fabric", "hybrid", "--fabric-mesh", "1x3",
+                          *flags, "--batch", "4", "--prompt-len", "256", "--gen-len", str(gen_len)])
+        took = time.time() - t0
+        launches = {"cim_matmul_fq": cmm.launches, "flash_attention": fa.launches}
+        want = {"cim_matmul_fq": 7 * get_config("smollm-135m").n_layers * gen_len, "flash_attention": 0}
+        fab = out["fabric"]
+        numbers = [v for v in fab.values() if not isinstance(v, (bool, str))]
+        if (launches != want or not all(0 <= v < float("inf") for v in numbers)
+                or out["generated"].shape != (4, gen_len) or not bool(torch.isfinite(out["logits"]).all())):
+            raise AssertionError(f"[serve-graph] {tag}: fabric {fab}, launches {launches} (want {want})")
+        runs[tag] = launches
+        print(f"[serve-graph] smollm-135m 1x3 {' '.join(flags)}, fake_quant, batch 4, prompt 256, gen 16: "
+              f"{took:.2f} s in all, prefill {out['prefill_s']:.4f} s, decode {out['decode_tok_s']:.2f} tok/s; "
+              f"launches {launches}")
+    return runs
+
+
 def _to(tree, device):
     return {k: _to(v, device) for k, v in tree.items()} if isinstance(tree, dict) else tree.to(device)
 
@@ -1544,7 +1813,16 @@ def main() -> int:
     with k1_recorder(cmm, served, "serve-shard"):
         serve_shard_launches = serve_shard_phase(torch, cmm, fa)
     stamp("serve-shard")
-    k1["shard_layer"], k1["program"] = shard, program
+    with k1_recorder(cmm, served, "graph"):
+        graph = graph_phase(torch, cmm)
+    stamp("graph")
+    with k1_recorder(cmm, served, "autotune"):
+        autotune = autotune_phase(torch, cmm)
+    stamp("autotune")
+    with k1_recorder(cmm, served, "serve-graph"):
+        serve_graph_launches = serve_graph_phase(torch, cmm, fa)
+    stamp("serve-graph")
+    k1["shard_layer"], k1["program"], k1["graph"], k1["autotune"] = shard, program, graph, autotune
     with k1_recorder(cmm, served, "serve-moe"):
         moe_launches = serve_moe_phase(torch, cmm, fa)
     with k1_recorder(cmm, served, "serve-mamba"):
@@ -1566,7 +1844,12 @@ def main() -> int:
              "shard": {"cim_matmul_fq": sum(v["launches"] for v in shard.values() if isinstance(v, dict)),
                        "flash_attention": 0},
              "program": {"cim_matmul_fq": sum(v["launches"] for v in program.values()), "flash_attention": 0},
-             **{f"serve-shard {tag}": counts for tag, counts in serve_shard_launches.items()}}
+             **{f"serve-shard {tag}": counts for tag, counts in serve_shard_launches.items()},
+             **{f"graph {tag}": {"cim_matmul_fq": v["launches"], "flash_attention": 0}
+                for tag, v in graph.items() if "launches" in v},
+             "graph smollm 1x3 scanned": {"cim_matmul_fq": graph["smollm 1x3"]["scan_launches"], "flash_attention": 0},
+             "autotune": {"cim_matmul_fq": autotune["launches"], "flash_attention": 0},
+             **{f"serve-graph {tag}": counts for tag, counts in serve_graph_launches.items()}}
     for entry, name in ((k1, "cim_matmul_fq"), (k2, "flash_attention")):
         entry["launches_by_path"] = {path: counts[name] for path, counts in paths.items()}
 

@@ -122,7 +122,7 @@ def _pad_reduction(x_int, w_int, rows):
     return x_int, w_int, (k + pad) // rows
 
 
-def _bitplane_matmul(x_int, w_int, cfg: CiMConfig, key=None, row_offset=0):
+def _bitplane_matmul(x_int, w_int, cfg: CiMConfig, key=None, row_offset=0, exact_comparisons: bool = False):
     """x_int (M,K) @ w_int (K,N) through per-plane CiM arrays + in-memory ADC.
 
     The MAV of every (plane_a, plane_w, tile) is digitized by the configured
@@ -138,7 +138,9 @@ def _bitplane_matmul(x_int, w_int, cfg: CiMConfig, key=None, row_offset=0):
     Returns (y_int float32 (M,N), CimStats). The recombined sum is exact, and
     so independent of its order, while every partial sum stays below 2^24
     granules of ``rows / 2^adc_bits``; ``comparisons`` is summed in float32 as
-    the JAX package sums it (rounded above 2^24).
+    the JAX package sums it (rounded above 2^24), or in int64 with
+    ``exact_comparisons`` (``fabric.tiles`` runs several column tiles as
+    one call where each tile's float32 total is exact).
     """
     m, _ = x_int.shape
     n = w_int.shape[1]
@@ -180,7 +182,8 @@ def _bitplane_matmul(x_int, w_int, cfg: CiMConfig, key=None, row_offset=0):
     y_int = torch.tensordot(torch.outer(wa, ww), counts.sum(dim=3), dims=([0, 1], [0, 1]))
     stats = CimStats(
         conversions=torch.tensor(conversions, dtype=torch.int32, device=counts.device),
-        comparisons=res.comparisons.float().sum().to(torch.int32),
+        comparisons=(res.comparisons.to(torch.int64).sum() if exact_comparisons
+                     else res.comparisons.float().sum()).to(torch.int32),
     )
     return y_int, stats
 

@@ -11,7 +11,8 @@ The PyTorch counterpart of ``repro.fabric``:
   * :mod:`repro_torch.fabric.mapper` — tile a matmul (or a whole
     ``ModelConfig``) onto the fabric: K across arrays at ``rows``
     boundaries, N across array columns, M across time; placements with
-    weight-load (external-memory-access) counts; the model's forward chain.
+    weight-load (external-memory-access) counts; the model's forward chain
+    and its forward graph (every matmul and the mixing ops between them).
   * :mod:`repro_torch.fabric.pipeline` — cycle-pipelined schedules over a
     digitization group; chip throughput and the iso-area comparison; the
     mesh's double-buffered link overlap and link validation.
@@ -27,21 +28,49 @@ The PyTorch counterpart of ``repro.fabric``:
   * :mod:`repro_torch.fabric.program` — the fused forward over the model's
     residual chain (``compile_forward`` -> ``FabricProgram``), with
     ``measure_forward``'s measured-vs-modeled link time.
+  * :mod:`repro_torch.fabric.graph` — the fused forward over whole
+    transformer blocks (``compile_graph_forward`` -> ``GraphProgram``:
+    siblings, attention, norms, residuals; the scan form over stacked
+    layer weights), its per-node reference loop and weight adapters.
+  * :mod:`repro_torch.fabric.autotune` — the bucketed program cache for
+    ragged batches and the cost-model mesh/bucket autotuner.
   * :mod:`repro_torch.fabric.report` — per-layer and chip- or mesh-level
     area / energy / latency / EMA rollups and their markdown.
 
-Everything equals the JAX package's results on the CPU (dicts, markdown,
-placements, outputs; noisy draws included). The fused forward graph and the
-autotuner wait for their ports (ROADMAP.md, port queues A7, A8).
+Plans, dicts and markdown equal the JAX package's on the CPU, and so do the
+CiM outputs (noisy draws included); the forward graph's mixing ops (softmax,
+norms, SiLU) follow torch's ``exp`` / ``rsqrt``, so its logits agree with the
+JAX package's within float32 rounding.
 """
 
+from repro_torch.fabric.autotune import (
+    AutotunePlan,
+    BucketedGraphCache,
+    autotune_plan,
+    autotune_section,
+    request_histogram,
+)
 from repro_torch.fabric.execute import execute_linear, execute_matmul
+from repro_torch.fabric.graph import (
+    GraphProgram,
+    compile_graph_forward,
+    graph_eligibility,
+    per_node_forward,
+    shard_forward_graph,
+    stack_block_weights,
+    transformer_graph_weights,
+    unstack_block_weights,
+)
 from repro_torch.fabric.mapper import (
+    ForwardGraph,
+    GraphNode,
     LayerPlacement,
     TileAssignment,
     map_matmul,
     map_model,
+    model_block_template,
     model_forward_chain,
+    model_forward_graph,
     model_matmuls,
 )
 from repro_torch.fabric.pipeline import (
@@ -60,7 +89,7 @@ from repro_torch.fabric.program import (
     per_layer_forward,
     program_eligibility,
 )
-from repro_torch.fabric.report import fabric_report, render_markdown, sharded_fabric_report
+from repro_torch.fabric.report import fabric_report, graph_section, render_markdown, sharded_fabric_report
 from repro_torch.fabric.shard import (
     ShardedPlacement,
     execute_sharded_matmul,
@@ -83,6 +112,10 @@ __all__ = [
     "map_model",
     "model_matmuls",
     "model_forward_chain",
+    "GraphNode",
+    "ForwardGraph",
+    "model_forward_graph",
+    "model_block_template",
     "conversion_cycles",
     "fabric_throughput",
     "iso_area_comparison",
@@ -104,7 +137,21 @@ __all__ = [
     "per_layer_forward",
     "measure_forward",
     "program_eligibility",
+    "GraphProgram",
+    "compile_graph_forward",
+    "per_node_forward",
+    "graph_eligibility",
+    "shard_forward_graph",
+    "transformer_graph_weights",
+    "stack_block_weights",
+    "unstack_block_weights",
     "fabric_report",
     "sharded_fabric_report",
+    "graph_section",
     "render_markdown",
+    "BucketedGraphCache",
+    "AutotunePlan",
+    "autotune_plan",
+    "autotune_section",
+    "request_histogram",
 ]

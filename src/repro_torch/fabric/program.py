@@ -571,7 +571,7 @@ def _time_best(fn, iters: int, device: torch.device) -> float:
 
 
 def measure_forward(
-    program: FabricProgram,
+    program,
     x=None,
     weights=None,
     key=None,
@@ -583,7 +583,10 @@ def measure_forward(
 ) -> dict:
     """Time a fused program and isolate its collectives' time.
 
-    Runs (host clock between ``torch.cuda.synchronize()`` calls on a CUDA
+    ``program`` is a chain :class:`FabricProgram` or a full-block
+    :class:`~repro_torch.fabric.graph.GraphProgram`: both expose the fused
+    and collective-stripped programs and a ``reference_forward`` unfused
+    baseline. Runs (host clock between ``torch.cuda.synchronize()`` calls on a CUDA
     device; best of ``iters`` after a warm-up): the fused program; an
     identical program with the collectives replaced by local stand-ins of
     the same shapes (so the difference is the collectives' time); and the
@@ -591,9 +594,9 @@ def measure_forward(
     program's own backend, timed with ``per_layer_iters``; ``per_layer=False``
     skips it). The measured collective seconds land next to the modeled
     link time via ``fabric.pipeline.link_validation``. ``x`` and
-    ``weights`` default to :meth:`FabricProgram.example_input` and
-    :meth:`FabricProgram.random_weights` of ``PRNGKey(0)`` / ``PRNGKey(1)``
-    drawn on ``device``.
+    ``weights`` default to the program's ``example_input`` and
+    ``random_weights`` of ``PRNGKey(0)`` / ``PRNGKey(1)`` drawn on
+    ``device``.
 
     Example::
 

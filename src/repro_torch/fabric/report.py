@@ -8,10 +8,9 @@ fabric of equal footprint.
 
 The PyTorch counterpart of ``repro.fabric.report``: the same dicts and the
 same markdown, for one chip (:func:`fabric_report`) and for a chip mesh
-(:func:`sharded_fabric_report`, with the fused program's validation).
-:func:`render_markdown` renders the JAX package's graph and autotune
-sections too; their producers (``graph_section``, the autotuner) wait for
-their ports (ROADMAP.md, port queues A7, A8).
+(:func:`sharded_fabric_report`, with the fused program's validation and
+the forward graph's section, :func:`graph_section`), and the autotuner's
+section (``fabric.autotune.autotune_section``) in :func:`render_markdown`.
 
   PYTHONPATH=src python -m repro_torch.fabric.report --arch smollm-135m --mode hybrid
 """
@@ -32,7 +31,48 @@ from repro_torch.fabric.pipeline import (
 )
 from repro_torch.fabric.topology import EMA_PJ_PER_BIT, ChipMeshConfig, FabricConfig
 
-__all__ = ["fabric_report", "sharded_fabric_report", "render_markdown"]
+__all__ = ["fabric_report", "sharded_fabric_report", "graph_section", "render_markdown"]
+
+
+def graph_section(graph, model_axis: int, program=None) -> dict:
+    """The report's ``graph`` section for a ``ForwardGraph``: node-op
+    census, the sibling branches the chain rollup undercounted, and the
+    documented collective budget. ONE schema, shared by
+    ``sharded_fabric_report(..., graph=...)`` and the serve rollup.
+
+    ``program`` (a ``fabric.graph.GraphProgram``) attaches a ``scan``
+    subsection when it was compiled with ``scan_layers=True``: the scan
+    trip count, the per-block collective census and the out-of-scan tail's
+    budget — ``census × n_blocks + tail`` sums to the section's
+    ``collective_budget`` (the link traffic is identical; only trace and
+    compile cost change).
+
+    Example::
+
+        >>> from repro_torch.configs.registry import get_config
+        >>> from repro_torch.fabric import graph_section, model_forward_graph
+        >>> g = model_forward_graph(get_config("smollm-135m"), 4, block_only=True)
+        >>> sec = graph_section(g, 2)
+        >>> sec["n_matmuls"], sec["collective_budget"]["all_gather"]
+        (7, 1)
+    """
+    ops: dict = {}
+    for nd in graph.nodes:
+        ops[nd.op] = ops.get(nd.op, 0) + 1
+    sec = {
+        "n_nodes": len(graph.nodes),
+        "ops": ops,
+        "n_matmuls": len(graph.matmul_nodes),
+        "siblings": graph.sibling_names(),
+        "collective_budget": graph.collective_budget(model_axis),
+    }
+    if program is not None and getattr(program, "scan_layers", False):
+        sec["scan"] = {
+            "n_blocks": program.n_blocks,
+            "block_census": program.block_graph.block_census(model_axis),
+            "tail_budget": program.tail_graph.collective_budget(model_axis),
+        }
+    return sec
 
 
 def _layer_row(
@@ -152,9 +192,14 @@ def sharded_fabric_report(
 
     ``measured`` (a ``fabric.program.measure_forward`` dict) attaches the
     fused program's measured-vs-modeled link-latency validation as a
-    ``program_validation`` section. The forward graph's section (``graph``,
-    ``program``) waits for the port of ``fabric.graph`` (ROADMAP.md, port
-    queue A7) and raises ``NotImplementedError``.
+    ``program_validation`` section.
+
+    ``graph`` (a ``fabric.mapper.ForwardGraph`` whose matmul nodes produced
+    ``sharded``) attaches a ``graph`` section — node taxonomy, the sibling
+    branches the chain rollup undercounted, and the documented collective
+    budget (:func:`graph_section`). ``program`` additionally threads a
+    scanned ``GraphProgram``'s per-block census into the section; the
+    budget totals are identical scan or unroll.
 
     Example::
 
@@ -166,11 +211,6 @@ def sharded_fabric_report(
         >>> rep["mesh"]["n_chips"], rep["totals"]["crosschip_bits_per_pass"] > 0
         (4, True)
     """
-    if graph is not None or program is not None:
-        raise NotImplementedError(
-            "the forward graph's report section (graph_section) is not ported yet "
-            "(ROADMAP.md, port queue A7)"
-        )
     fabric = chip_mesh.fabric
     tp = fabric_throughput(fabric, n_conversions)
     rate_per_compute = tp["group_conversions_per_cycle"] / fabric.compute_arrays_per_group
@@ -239,6 +279,8 @@ def sharded_fabric_report(
         "layers": layers,
         "totals": totals,
     }
+    if graph is not None:
+        report["graph"] = graph_section(graph, chip_mesh.model, program=program)
     if measured is not None:
         report["program_validation"] = measured
     return report

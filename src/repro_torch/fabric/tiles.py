@@ -5,10 +5,10 @@ one chip's quantized ``(M, K) @ (K, N)`` block through
 :func:`column_tile_matmul`: walk the output-column tiles, run each through
 ``core.cim_linear``'s per-plane machinery with a per-tile ``fold_in(key, nt)``
 noise key, and accumulate conversion/comparison stats. The sharded
-executor (``fabric.shard``, one call per chip block) and the fused chain
-program (``fabric.program``, one call per chip and layer) share this one
-definition, as in the JAX package; the fused graph's port (ROADMAP.md, port
-queue A7) will too.
+executor (``fabric.shard``, one call per chip block), the fused chain
+program (``fabric.program``, one call per chip and layer) and the fused
+graph (``fabric.graph``, one call per chip and matmul node) share this one
+definition, as in the JAX package.
 
 Stats are meaningful in BOTH fidelity modes: ``bitplane`` counts the actual
 ADC conversions / comparator firings performed by ``_bitplane_matmul``;
@@ -31,6 +31,8 @@ from repro_torch.core.mav_stats import analytic_code_pmf
 __all__ = ["column_tile_matmul", "analytic_cim_stats"]
 
 _INT32 = (-(1 << 31), (1 << 31) - 1)
+#: MAV elements one grouped noiseless bit-plane call may hold (128 MB of float32)
+GROUP_ELEMENTS = 1 << 25
 
 
 def _int32(value: int, device=None) -> torch.Tensor:
@@ -83,6 +85,13 @@ def column_tile_matmul(
     ``_bitplane_matmul``, as in the JAX package. ``row_offset`` is the global
     index of ``x_int``'s first row.
 
+    Without a key (no noise is drawn) a column's codes do not depend on the
+    others, so neighbouring tiles run as one ``_bitplane_matmul`` call of up
+    to :data:`GROUP_ELEMENTS` MAV elements, wherever every tile's comparison
+    total stays exact in float32 (below 2^24 even at one comparison per
+    code level); the call sums its comparisons exactly, so outputs and
+    stats equal the tile-by-tile walk. The JAX package walks tile by tile.
+
     Returns the UNSCALED integer-valued result ``(M, N)`` float32 plus
     :class:`CimStats` (actual counts in ``bitplane`` mode, analytic in
     ``fake_quant``, where one full-width call equals the per-tile walk).
@@ -109,15 +118,20 @@ def column_tile_matmul(
             return y, None
         k_tiles = math.ceil(x_int.shape[1] / cim.rows)
         return y, analytic_cim_stats(cim, x_int.shape[0], k_tiles, n, device=y.device)
+    group, exact = 1, False
     if key is not None:
         key = prng.as_key(key, x_int.device)
+    else:
+        per_tile = cim.a_bits * cim.w_bits * x_int.shape[0] * math.ceil(x_int.shape[1] / cim.rows) * cols
+        if per_tile << cim.adc_bits < 1 << 24:
+            group, exact = max(1, GROUP_ELEMENTS // max(per_tile, 1)), True
     parts = []
     conversions = torch.zeros((), dtype=torch.int32, device=x_int.device)
     comparisons = torch.zeros((), dtype=torch.int32, device=x_int.device)
-    for nt in range(math.ceil(n / cols)):
-        n0, n1 = nt * cols, min((nt + 1) * cols, n)
+    for nt in range(0, math.ceil(n / cols), group):
+        n0, n1 = nt * cols, min((nt + group) * cols, n)
         tkey = prng.fold_in(key, nt) if key is not None else None
-        y_t, st = _bitplane_matmul(x_int, w_int[:, n0:n1], cim, tkey, row_offset)
+        y_t, st = _bitplane_matmul(x_int, w_int[:, n0:n1], cim, tkey, row_offset, exact_comparisons=exact)
         conversions = conversions + st.conversions
         comparisons = comparisons + st.comparisons
         parts.append(y_t)

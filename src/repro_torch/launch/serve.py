@@ -19,10 +19,17 @@ CiM fabric (``repro_torch.fabric``) before serving — one chip, or a
 carries the per-request fabric cost, one bit-plane matmul runs through the
 sharded executor on the resolved backend (``--fabric-backend``) as a
 validation pass, and the rollup's markdown follows. ``--fabric-program``
-also runs the fused forward over one block's residual chain
-(``fabric.compile_forward``) against the per-layer loop and reports its
-measured-vs-modeled link time, for the families whose forward has no matmul
-graph (``mamba``, ``hybrid``).
+also runs a fused forward against its reference loop and reports its
+measured-vs-modeled link time: the full transformer-block graph
+(``fabric.compile_graph_forward``: one block, or the whole model in the scan
+form with ``--fabric-scan``) on the ``dense`` and ``moe`` families, the
+residual chain of one block (``fabric.compile_forward``) on ``mamba`` and
+``hybrid``. ``--fabric-autotune`` picks the mesh and batch buckets from the
+graph cost model for a ragged request mix (``fabric.autotune``) and serves
+one ragged batch through the bucketed program cache against the per-node
+reference. ``--obs-log``, ``--obs-metrics`` and ``--obs-metrics-out``
+stream ``repro_torch.obs`` events to JSONL and print (or write) the
+Prometheus exposition, as the JAX serve CLI does.
 
 CLI::
 
@@ -33,17 +40,16 @@ CLI::
     python -m repro_torch.launch.serve --arch smollm-135m --fabric hybrid --fabric-arrays 60
     python -m repro_torch.launch.serve --arch smollm-135m --cim fake_quant --fabric hybrid \\
         --fabric-chips 4 --fabric-backend shard_map
+    python -m repro_torch.launch.serve --arch smollm-135m --cim fake_quant --fabric hybrid \\
+        --fabric-mesh 1x3 --fabric-program [--fabric-scan] [--fabric-autotune]
     python -m repro_torch.launch.serve --arch mamba2-130m --fabric hybrid --fabric-mesh 1x2 --fabric-program
-
-``--fabric-program`` on the ``dense`` and ``moe`` families (the JAX package
-runs the fused forward graph there), ``--fabric-scan``, ``--fabric-autotune``
-and the ``--obs-*`` options of the JAX serve CLI wait for their ports
-(ROADMAP.md, port queues A7-A9) and are refused.
+    python -m repro_torch.launch.serve --arch smollm-135m --reduced --obs-metrics --obs-log events.jsonl
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import time
@@ -117,19 +123,42 @@ def validation_matmul(fabric, device="cuda", chip_mesh=None, backend: str = "seq
     return execute_sharded_matmul(x, w, cm, cim, sharded=sp, backend=backend)
 
 
-def _program_validation(cfg: ModelConfig, chip_mesh, tokens: int, backend: str, device: torch.device) -> dict:
-    """``serve --fabric-program``: the fused forward over one block's
-    residual chain (bit-plane, 4/4 bits) against the per-layer loop, and
-    ``measure_forward``'s measured-vs-modeled link time. Prints one line and
-    returns ``measure_forward``'s dict, with the fused forward's largest
-    difference from the loop as ``max_abs_diff_vs_per_layer``."""
+def _program_validation(cfg: ModelConfig, chip_mesh, tokens: int, backend: str, device: torch.device,
+                        scan: bool, rollup: dict) -> dict:
+    """``serve --fabric-program``: a fused forward (bit-plane, 4/4 bits)
+    against its reference loop, and ``measure_forward``'s
+    measured-vs-modeled link time. On the ``dense`` and ``moe`` families the
+    full transformer-block graph (one block, or with ``scan`` the whole model
+    in the scan form; its ``graph`` section goes into ``rollup``) on
+    ``(tokens, 1, d)`` embeddings; on the others the residual chain of one
+    block. Prints one line and returns ``measure_forward``'s dict, with the
+    fused forward's largest difference from the loop as
+    ``max_abs_diff_vs_per_layer``."""
     from repro_torch.core import prng
-    from repro_torch.fabric import compile_forward, measure_forward
+    from repro_torch.fabric import measure_forward
 
     fb = chip_mesh.fabric
     val_cim = CiMConfig(mode="bitplane", a_bits=4, w_bits=4, adc_bits=fb.adc_bits, rows=fb.rows, ste=False)
-    prog = compile_forward(cfg, chip_mesh, cim=val_cim, backend=backend, tokens=tokens, block_only=True)
-    xp = prog.example_input(prng.PRNGKey(2, device))
+    if cfg.family in ("dense", "moe"):
+        from repro_torch.fabric import compile_graph_forward, graph_section
+
+        # --fabric-scan validates the FULL model in the scan form; otherwise one block
+        prog = compile_graph_forward(cfg, chip_mesh, cim=val_cim, backend=backend, tokens=tokens,
+                                     block_only=not scan, scan_layers=scan)
+        xp = prng.normal(prng.PRNGKey(2, device), (tokens, 1, prog.d_in))
+        rollup["graph"] = graph_section(prog.graph, chip_mesh.model, program=prog)
+        if scan:
+            desc = f"graph: scanned {prog.n_blocks}-block model ({len(prog.placements)} matmuls, block traced once)"
+        else:
+            desc = f"graph: {len(prog.graph.nodes)}-node block ({len(prog.placements)} matmuls)"
+        ref_name = "per-node loop"
+    else:
+        from repro_torch.fabric import compile_forward
+
+        prog = compile_forward(cfg, chip_mesh, cim=val_cim, backend=backend, tokens=tokens, block_only=True)
+        xp = prog.example_input(prng.PRNGKey(2, device))
+        desc = f"chain: {prog.n_layers}-layer block"
+        ref_name = "per-layer loop"
     wsp = prog.random_weights(prng.PRNGKey(3, device))
     maxdiff = float((prog(xp, wsp) - prog.reference_forward(xp, wsp, backend="sequential")).abs().max())
     # reference baseline on the sequential loop: the auto-fallback path, and
@@ -138,13 +167,50 @@ def _program_validation(cfg: ModelConfig, chip_mesh, tokens: int, backend: str, 
     measured["max_abs_diff_vs_per_layer"] = maxdiff
     mc = measured.get("measured_collective_s")
     print(
-        f"[serve] fused chain: {prog.n_layers}-layer block on {prog.backend}"
+        f"[serve] fused {desc} on {prog.backend}"
         + (f" (fallback: {'; '.join(prog.problems)})" if prog.problems else "")
-        + f", maxdiff {maxdiff:.2e} vs per-layer loop; collectives "
+        + f", maxdiff {maxdiff:.2e} vs {ref_name}; collectives "
         + (f"{mc*1e3:.3g} ms wall" if mc is not None else "n/a")
         + f" vs modeled link {measured['modeled_link_s']*1e3:.3g} ms"
     )
     return measured
+
+
+def _autotune_validation(cfg: ModelConfig, fabric, batch: int, mesh: tuple, scan: bool, device: torch.device) -> dict:
+    """``serve --fabric-autotune``: pick the mesh and batch buckets for a
+    ragged request mix (every batch size 1..``batch``, uniform) from the
+    graph cost model, then serve one ragged batch (one the plan's data axis
+    does not divide, when there is one) through the bucketed program cache
+    (bit-plane, 4/4 bits) against the per-node reference. Prints one line
+    and returns the rollup's ``autotune`` section."""
+    from repro_torch.core import prng
+    from repro_torch.fabric import (
+        BucketedGraphCache,
+        ChipMeshConfig,
+        autotune_plan,
+        autotune_section,
+        request_histogram,
+    )
+
+    at_cim = CiMConfig(mode="bitplane", a_bits=4, w_bits=4, adc_bits=fabric.adc_bits, rows=fabric.rows, ste=False)
+    hist = request_histogram(range(1, batch + 1))
+    plan = autotune_plan(cfg, hist, mesh[0] * mesh[1], fabric, cim=at_cim, default_mesh=mesh)
+    plan_cm = ChipMeshConfig(data=plan.data, model=plan.model, fabric=fabric)
+    cache = BucketedGraphCache(cfg, plan_cm, at_cim, buckets=plan.buckets, block_only=not scan, scan_layers=scan)
+    b_val = next((b for b in range(batch, 0, -1) if b % plan.data), batch)
+    prog = cache.program_for(cache.bucket_for(b_val))
+    w_at = prog.random_weights(prng.PRNGKey(3, device))
+    x_at = prng.normal(prng.PRNGKey(2, device), (b_val, 1, prog.d_in))
+    at_diff = float((cache(x_at, w_at) - prog.reference_forward(x_at, w_at)).abs().max())
+    print(
+        f"[serve] autotune: mesh {plan.data}x{plan.model}, buckets "
+        f"{list(plan.buckets)} ({plan.searched} plans searched); "
+        f"expected {plan.expected_latency_s*1e3:.3g} ms/request vs "
+        f"baseline {plan.baseline_latency_s*1e3:.3g} ms; ragged "
+        f"B={b_val} via bucketed fused path, maxdiff {at_diff:.2e} "
+        f"vs per-node reference"
+    )
+    return autotune_section(plan, cache)
 
 
 def fabric_rollup(
@@ -155,6 +221,8 @@ def fabric_rollup(
     mesh: tuple = (1, 1),
     backend: str = "auto",
     program: bool = False,
+    scan: bool = False,
+    autotune: bool = False,
 ) -> dict:
     """Map ``cfg`` onto the fabric for one batched forward pass of
     ``tokens`` tokens and roll it up: one chip's ``fabric_report``, or the
@@ -163,8 +231,10 @@ def fabric_rollup(
     replication fallback keeps the whole pass sequential, and an explicit
     ``shard_map`` fails on it), run the validation pass
     (:func:`validation_matmul`) on it and record it as ``exec_backend``.
-    ``program`` adds the fused chain's validation
-    (``program_validation``)."""
+    ``program`` adds the fused forward's validation (``program_validation``,
+    and on ``dense`` / ``moe`` the ``graph`` section; ``scan`` runs the
+    whole model in the scan form), ``autotune`` the autotuner's plan and
+    bucketed batch (``autotune``)."""
     from repro_torch.fabric import (
         ChipMeshConfig,
         fabric_report,
@@ -192,7 +262,9 @@ def fabric_rollup(
     n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
     print(f"[serve] fabric exec backend: {exec_backend} ({n_dev} {device.type} device(s) for {cm.n_chips} chip(s))")
     if program:
-        rollup["program_validation"] = _program_validation(cfg, cm, tokens, backend, device)
+        rollup["program_validation"] = _program_validation(cfg, cm, tokens, backend, device, scan, rollup)
+    if autotune:
+        rollup["autotune"] = _autotune_validation(cfg, fabric, tokens, mesh, scan, device)
     return rollup
 
 
@@ -374,14 +446,59 @@ def main(argv=None):
     )
     ap.add_argument(
         "--fabric-program", action="store_true",
-        help="run the fused forward over one block's residual chain (repro_torch.fabric.compile_forward) "
-        "as a validation pass and report measured-vs-modeled link latency (mamba and hybrid families; "
-        "dense and moe wait for ROADMAP.md A7)",
+        help="run a fused forward as a validation pass and report measured-vs-modeled link latency: the "
+        "full transformer-block graph (repro_torch.fabric.compile_graph_forward, one block) on dense and moe, "
+        "one block's residual chain (repro_torch.fabric.compile_forward) on mamba and hybrid",
     )
-    for flag, queue in (("--fabric-scan", "A7"), ("--fabric-autotune", "A8")):
-        ap.add_argument(flag, action="store_true", help=f"waits for ROADMAP.md {queue}")
+    ap.add_argument(
+        "--fabric-scan", action="store_true",
+        help="run the --fabric-program graph validation pass in the scan form (scan_layers=True): the FULL "
+        "model's repeated block over weights stacked on a layer axis (dense/moe families only)",
+    )
+    ap.add_argument(
+        "--fabric-autotune", action="store_true",
+        help="pick the (data x model) mesh and batch-bucket boundaries from the graph cost model "
+        "(repro_torch.fabric.autotune) for a synthetic ragged request mix, then validate a ragged batch "
+        "through the bucketed fused-program cache against the per-node reference",
+    )
+    ap.add_argument(
+        "--obs-log", default=None, metavar="PATH",
+        help="stream repro_torch.obs spans/events (fabric fallbacks, serve prefill/decode, request "
+        "summaries) to PATH as JSONL",
+    )
+    ap.add_argument(
+        "--obs-metrics", action="store_true",
+        help="collect repro_torch.obs metrics for the whole run: the batching log becomes the per-request "
+        "obs summary line and the Prometheus text exposition prints at exit",
+    )
+    ap.add_argument(
+        "--obs-metrics-out", default=None, metavar="PATH",
+        help="write the Prometheus exposition to PATH instead of stdout (implies --obs-metrics)",
+    )
     args = ap.parse_args(argv)
 
+    with contextlib.ExitStack() as stack:
+        if args.obs_log:
+            stack.enter_context(obs_trace.tracing(jsonl=args.obs_log))
+        reg = None
+        if args.obs_metrics or args.obs_metrics_out:
+            reg = stack.enter_context(obs_metrics.collecting())
+        out = _serve_main(args, ap)
+        if args.obs_log:
+            print(f"[serve] obs JSONL event log: {args.obs_log}")
+        if reg is not None:
+            if args.obs_metrics_out:
+                from repro_torch.obs.sinks import write_prometheus
+
+                write_prometheus(reg, args.obs_metrics_out)
+                print(f"[serve] obs metrics exposition: {args.obs_metrics_out}")
+            else:
+                print("\n[serve] obs metrics exposition:")
+                print(reg.prometheus_text(), end="")
+    return out
+
+
+def _serve_main(args, ap):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
@@ -401,16 +518,6 @@ def main(argv=None):
         ap.error(f"--fabric-scan needs a matmul-graph family (dense/moe); {args.arch} is {cfg.family!r}")
     if args.fabric_mesh and args.fabric_chips > 1:
         ap.error("pass either --fabric-mesh or the --fabric-chips sugar, not both")
-    unported = [
-        name for name, given in (
-            (f"--fabric-program on the {cfg.family} family (the fused forward graph, A7)",
-             args.fabric_program and cfg.family in ("dense", "moe")),
-            ("--fabric-scan (A7)", args.fabric_scan),
-            ("--fabric-autotune (A8)", args.fabric_autotune),
-        ) if given
-    ]
-    if unported:
-        ap.error(f"{', '.join(unported)}: not ported yet (ROADMAP.md, port queues A7-A8)")
     if args.fabric_mesh:
         try:
             mesh = parse_fabric_mesh(args.fabric_mesh)
@@ -430,7 +537,7 @@ def main(argv=None):
         fabric = FabricConfig(mode=args.fabric, n_arrays=args.fabric_arrays)
         rollup = fabric_rollup(
             cfg, fabric, st.batch, args.device, mesh=mesh, backend=args.fabric_backend,
-            program=args.fabric_program,
+            program=args.fabric_program, scan=args.fabric_scan, autotune=args.fabric_autotune,
         )
     out = serve_batch(cfg, st, device=args.device, fabric_rollup=rollup)
     print(
@@ -445,7 +552,6 @@ def main(argv=None):
         print()
         print(render_markdown(rollup))
     return out
-
 
 if __name__ == "__main__":
     main()

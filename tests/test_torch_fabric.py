@@ -66,6 +66,12 @@ def _asdict(obj):
     return json.loads(json.dumps(dataclasses.asdict(obj), default=str))
 
 
+def _placement_asdict(p):
+    """``_asdict`` of a port placement, its tiles read one by one from the
+    ``TileGrid`` that holds them (``asdict`` does not descend into it)."""
+    return {**_asdict(dataclasses.replace(p, tiles=[])), "tiles": [_asdict(t) for t in p.tiles]}
+
+
 # ---------------------------------------------------------------------------
 # the analytic core: energy/area, noise, schedules (pure Python copies)
 # ---------------------------------------------------------------------------
@@ -136,7 +142,9 @@ def test_map_matmul_and_map_model_match_jax(whole_smollm):
     for m, k, n, off in ((1, 40, 70, 0), (4, 64, 64, 3), (3, 100, 33, 7)):
         pj = jfab.map_matmul("l", m, k, n, fj, array_offset=off)
         pt = tfab.map_matmul("l", m, k, n, ft, array_offset=off)
-        assert _asdict(pt) == _asdict(pj)
+        assert _placement_asdict(pt) == _asdict(pj)
+        tiles = list(pt.tiles)
+        assert (pt.tiles[-1], pt.tiles[1:3], len(pt.tiles)) == (tiles[-1], tiles[1:3], len(tiles))
         assert (pt.resident, pt.weight_load_bits, pt.activation_bits, pt.conversions,
                 pt.conversions_per_array_max, pt.stats()) == (
             pj.resident, pj.weight_load_bits, pj.activation_bits, pj.conversions,
@@ -364,22 +372,44 @@ def test_serve_batch_fabric_rollup_matches_jax(capsys):
     assert conversions.search(line_t).group(1) == conversions.search(line_j).group(1)
 
 
-@pytest.mark.parametrize("flags", [["--fabric-chips", "4", "--fabric-mesh", "2x2"], ["--fabric-mesh", "2x2", "--fabric-program"],
-                                   ["--fabric-program"], ["--fabric-scan", "--fabric-program"], ["--fabric-autotune"],
-                                   ["--fabric-backend", "shard_map", "--fabric-chips", "4", "--fabric-program"]])
-def test_serve_cli_refuses_what_waits_for_a_mesh(flags, capsys):
-    """Meshes and the ``shard_map`` backend serve (``tests/test_torch_shard.py``);
-    what still waits is refused, naming its queue: the fused graph program
-    of a dense model (A7), the scan (A7) and the autotuner (A8). Both mesh
-    flags at once are the JAX CLI's error."""
-    with pytest.raises(SystemExit):
-        tserve.main(["--arch", "smollm-135m", "--device", "cpu", "--fabric", "hybrid"] + flags)
-    err = capsys.readouterr().err
-    if "--fabric-chips" in flags and "--fabric-mesh" in flags:
-        assert "pass either --fabric-mesh or the --fabric-chips sugar, not both" in err
-    else:
-        assert "ROADMAP.md, port queues A7-A8" in err
-        assert ("A8" if "--fabric-autotune" in flags else "A7") in err.split(": not ported yet")[0]
+@pytest.mark.parametrize("arch,flags,error", [
+    ("smollm-135m", ["--fabric-chips", "4", "--fabric-mesh", "2x2"],
+     "pass either --fabric-mesh or the --fabric-chips sugar, not both"),
+    ("smollm-135m", ["--fabric-scan"], "--fabric-scan requires --fabric-program"),
+    ("mamba2-130m", ["--fabric-program", "--fabric-scan"],
+     "--fabric-scan needs a matmul-graph family (dense/moe); mamba2-130m is 'mamba'"),
+    ("mamba2-130m", ["--fabric-autotune"],
+     "--fabric-autotune needs a matmul-graph family (dense/moe); mamba2-130m is 'mamba'"),
+    ("smollm-135m", ["--fabric-mesh", "2x1", "--fabric-program", "--fabric-scan"], None),
+    ("smollm-135m", ["--fabric-mesh", "2x1", "--fabric-autotune"], None),
+], ids=[f"flags{i}" for i in range(6)])
+def test_serve_cli_refuses_what_waits_for_a_mesh(arch, flags, error, monkeypatch, capsys):
+    """The CLI refuses what the JAX CLI refuses, with its words and in its
+    order (both mesh flags; ``--fabric-scan`` without ``--fabric-program``;
+    scan or autotune on a family without a matmul graph); the graph program,
+    its scan form and the autotuner now serve (``tests/test_torch_graph.py``,
+    ``tests/test_torch_autotune.py``)."""
+    argv = ["--arch", arch, "--reduced", "--batch", "2", "--prompt-len", "8", "--gen-len", "2",
+            "--cim", "fake_quant", "--fabric", "hybrid"] + flags
+    if error is None:
+        out = tserve.main(argv + ["--device", "cpu"])
+        text = capsys.readouterr().out
+        if "--fabric-autotune" in flags:
+            assert "[serve] autotune: mesh " in text and "maxdiff 0.00e+00 vs per-node reference" in text
+        else:
+            assert ("[serve] fused graph: scanned 2-block model (15 matmuls, block traced once) on shard_map, "
+                    "maxdiff 0.00e+00 vs per-node loop") in text
+        assert out["generated"].shape == (2, 2)
+        return
+    from repro.launch import serve as jserve
+
+    errors = []
+    for main in (lambda: tserve.main(argv + ["--device", "cpu"]), lambda: jserve.main()):
+        monkeypatch.setattr("sys.argv", ["serve"] + argv)
+        with pytest.raises(SystemExit):
+            main()
+        errors.append(capsys.readouterr().err.strip().splitlines()[-1])
+    assert errors[0] == errors[1] == f"serve: error: {error}"
 
 
 def test_parse_fabric_mesh_and_the_one_chip_backend():

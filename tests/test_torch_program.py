@@ -215,8 +215,15 @@ def test_measure_forward_keys_and_link_validation_equal_jax(x_np, weights):
     rep_t = tfab.sharded_fabric_report(pt.placements, pt.chip_mesh, measured=mj)
     assert "fused program" in tfab.render_markdown(rep_t)
     assert tfab.render_markdown(rep_t) == jfab.render_markdown(rep_j)
-    with pytest.raises(NotImplementedError, match="A7"):
-        tfab.sharded_fabric_report(pt.placements, pt.chip_mesh, graph=object())
+    # with a forward graph, the report's graph section equals the JAX package's
+    from repro.configs.registry import get_config as j_get_config
+    from repro_torch.configs import get_config
+
+    gj = jfab.model_forward_graph(j_get_config("smollm-135m"), 4, block_only=True)
+    gt = tfab.model_forward_graph(get_config("smollm-135m"), 4, block_only=True)
+    sec_t = tfab.sharded_fabric_report(pt.placements, pt.chip_mesh, graph=gt)["graph"]
+    assert sec_t == jfab.sharded_fabric_report(pj.placements, pj.chip_mesh, graph=gj)["graph"]
+    assert sec_t["n_matmuls"] == 7 and sec_t["collective_budget"]["reduce_scatter"] == 7
 
 
 def test_full_smollm_chain_plans_as_the_smoke_runs_it():
@@ -253,8 +260,14 @@ def test_serve_fabric_program_runs_the_fused_chain_on_mamba(capsys):
 
 
 def test_serve_fabric_program_is_refused_on_a_dense_model(capsys):
-    with pytest.raises(SystemExit):
-        tserve.main(["--arch", "smollm-135m", "--reduced", "--device", "cpu", "--batch", "2", "--prompt-len", "8",
-                     "--gen-len", "4", "--cim", "fake_quant", "--fabric", "hybrid", "--fabric-chips", "4",
-                     "--fabric-backend", "shard_map", "--fabric-program"])
-    assert "the fused forward graph, A7" in capsys.readouterr().err
+    """``--fabric-program`` on a dense model runs the full-block fused graph
+    (one block, bit-plane 4/4) against its per-node loop and prints the JAX
+    CLI's ``fused graph`` line; the rollup gains the graph section."""
+    out = tserve.main(["--arch", "smollm-135m", "--reduced", "--device", "cpu", "--batch", "2", "--prompt-len", "8",
+                       "--gen-len", "4", "--cim", "fake_quant", "--fabric", "hybrid", "--fabric-mesh", "2x1",
+                       "--fabric-backend", "shard_map", "--fabric-program"])
+    text = capsys.readouterr().out
+    assert ("[serve] fused graph: 13-node block (7 matmuls) on shard_map, maxdiff 0.00e+00 vs per-node loop; "
+            "collectives ") in text
+    assert "**forward graph:** 13 nodes" in text and "**fused program** (7 layers, shard_map)" in text
+    assert out["generated"].shape == (2, 4)

@@ -114,3 +114,33 @@ def test_serve_cli_moe_fabric_on_cpu(capsys):
     assert "[serve] batch 2x10 tok on 1 chip(s) [sequential]" in out
     assert "| layer1.router |" in out and "| layer0.expert0.down_proj |" in out
     assert "[serve] moonshot-v1-16b-a3b on cpu: prefill" in out
+
+
+def test_serve_cli_obs_flags_match_jax(tmp_path, monkeypatch, capsys):
+    """``--obs-log`` and ``--obs-metrics-out`` on a reduced fabric serve: the
+    Prometheus exposition holds the JAX CLI's metric names and the JSONL log
+    its event and span names; ``--obs-metrics`` prints the exposition."""
+    import json
+
+    argv = ["--arch", "smollm-135m", "--reduced", "--batch", "2", "--prompt-len", "8", "--gen-len", "3",
+            "--cim", "fake_quant", "--fabric", "hybrid"]
+    runs = {}
+    for tag in ("jax", "port"):
+        log, prom = tmp_path / f"{tag}.jsonl", tmp_path / f"{tag}.prom"
+        flags = argv + ["--obs-log", str(log), "--obs-metrics-out", str(prom)]
+        if tag == "jax":
+            monkeypatch.setattr("sys.argv", ["serve"] + flags)
+            jserve.main()
+        else:
+            tserve.main(flags + ["--device", "cpu"])
+        out = capsys.readouterr().out
+        assert f"[serve] obs JSONL event log: {log}" in out and f"[serve] obs metrics exposition: {prom}" in out
+        assert "[serve] obs batch 2x11 tok on 1 chip(s) [sequential]" in out
+        names = sorted({line.split()[2] for line in prom.read_text().splitlines() if line.startswith("# TYPE")})
+        events = sorted({json.loads(line)["name"] for line in log.read_text().splitlines()})
+        runs[tag] = names, events
+    assert runs["port"] == runs["jax"]
+    assert "fabric_ema_bits_total" in runs["port"][0] and "serve.request_summary" in runs["port"][1]
+    tserve.main(argv + ["--device", "cpu", "--obs-metrics"])
+    out = capsys.readouterr().out
+    assert "[serve] obs metrics exposition:" in out and "# TYPE serve_requests_total counter" in out
