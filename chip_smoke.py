@@ -149,23 +149,54 @@ Phases, in order; any failure raises and the script exits non-zero:
     state 64, shared block 32 heads of 112, d_ff 14336), 13 of its 81
     layers (two groups of 6 and one tail layer), fake_quant + flash, batch
     4, prompt 512, 16 tokens: K1 exactly 92 a forward, K2 2; profiled;
-22. ``[k1-served]``: K1 against its plain version (``torch.equal``) at
-    every (M, K, N) that phases 4 and 13-21 gave it, recorded as they ran:
+22. ``[train]``: ``launch.train.train`` on smollm-135m at full width (30
+    layers, d 576, vocab 49152), bf16 compute, remat full, AdamW,
+    fake_quant + STE with an 8-bit ADC (rows 16, 8/8 bits; the default
+    5-bit ADC's gradients overflow at this depth), batch 4 x seq 1024, lr
+    3e-4, warmup 2, 8 steps under ``torch.use_deterministic_algorithms``:
+    K1 exactly 420 launches a step (7 x 30 forward, 7 x 30 again in the
+    remat recompute), K2 0, counted alone per step; losses finite, the
+    trained params' loss on the first step's batch more than 0.05 below the
+    first step's loss and on an unseen batch no higher than the initial
+    params'; peak device memory; a ``stop_at=4`` run resumed from its
+    checkpoint to step 8 with the uninterrupted run's losses bit for bit;
+    then steady step seconds and tokens/s with deterministic algorithms off
+    and on in turn, and one step profiled (device busy share);
+23. ``[mnist]``: the paper's MLP (256-128-64-10) trained on the card for 4
+    epochs in float (accuracy > 0.93) and with QAT (fake_quant 4/4 bits,
+    rows 16, 5-bit: K1 exactly 3 launches a step), evaluated at the chip
+    geometry (bitplane 4/4 bits, rows 16, 5-bit; ``sar`` = ``sar_asym``,
+    within 0.05 of float; 2048 images) and at Fig. 7c's clocks (10 ... 100
+    MHz) and Fig. 7d's supplies (1.0 ... 0.6 V) on 512 images (10 MHz above
+    100 MHz by > 0.1); the same params on the CPU give the card's accuracy
+    noiseless (512 images) and at 10 MHz (64 images), the largest logit
+    difference printed;
+24. ``[k1-served]``: K1 against its plain version (``torch.equal``) at
+    every (M, K, N) that phases 4, 13-21, 22 and 23 gave it (the training
+    shapes M 4096 and the QAT M 128 among them), recorded as they ran:
     each linear at its full M (prefill batch x prompt, decode batch, an
     expert's capacity, a chip's block), on random int8 operands; the plain
     version runs in row blocks, as rows are independent at a fixed step.
     The shapes named for the new families (N 24, K 7168, expert M 8 and
     80), for the mesh (a 2x2 chip's M 512 K 288, the 1x4 unembed's K 144
     N 49152) and for the graph (a 1x3 chip's M 256 K 192 N 576, the
-    qwen3-moe router's K 512 N 128 on 1x4) must be among them;
-23. ``[agree-moe]`` (both ``moe_impl``), ``[agree-mamba]``,
+    qwen3-moe router's K 512 N 128 on 1x4) and for training (M 4096 K 576
+    N 1536; the MLP's M 128 K 256 N 128) must be among them;
+25. ``[agree-moe]`` (both ``moe_impl``), ``[agree-mamba]``,
     ``[agree-hybrid]``: phase 6 on the reduced float32 configs, with the
     routed experts compared first (a differing choice is printed as a
     routing flip with its probability margin);
-24. the host seconds each group of phases took (``[time]``), one JSON line
+26. ``[agree-train]``: one training step of each reduced float32 family
+    (smollm-135m with fake_quant + STE, qwen3-moe with both ``moe_impl``s,
+    mamba2-130m, zamba2-7b), card against CPU on the same weights and
+    batch: the loss within 1e-3 of itself, every gradient leaf within 1e-3
+    of its max, the AdamW update on the same gradients within 1e-6 of
+    max|p|;
+27. the host seconds each group of phases took (``[time]``), one JSON line
     of every kernel with its launches (from phase 4; per path in
-    ``launches_by_path``), times and bound, the card's line again, and the
-    final ``{"ok": true, ...}`` line.
+    ``launches_by_path``, ``train`` and ``mnist-qat`` among them), times
+    and bound, the card's line again, and the final ``{"ok": true, ...}``
+    line.
 
 Every number printed stands after the card's name and power limit (phase 1,
 repeated before the last line). It imports nothing of JAX or of the JAX
@@ -177,6 +208,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
@@ -427,7 +460,8 @@ def k1_served_phase(torch, cmm, shapes: dict) -> float:
     named = {"N 24": any(n == 24 for _, _, n in served), "K 7168": any(k == 7168 for _, k, _ in served),
              "expert M 80": any(m == 80 for m, _, _ in served), "expert M 8": any(m == 8 for m, _, _ in served),
              "shard M 512 K 288": (512, 288, 576) in served, "program K 144 N 49152": (4, 144, 49152) in served,
-             "graph 1x3 M 256 K 192": (256, 192, 576) in served, "graph router K 512 N 128": (256, 512, 128) in served}
+             "graph 1x3 M 256 K 192": (256, 192, 576) in served, "graph router K 512 N 128": (256, 512, 128) in served,
+             "train M 4096 K 576 N 1536": (4096, 576, 1536) in served, "mnist M 128 K 256 N 128": (128, 256, 128) in served}
     if not all(named.values()):
         raise AssertionError(f"the serve paths gave K1 none of {[s for s, ok in named.items() if not ok]}")
     print(f"[k1-served] {len(shapes)} served shapes, among them {', '.join(named)}: all bit-exact "
@@ -1746,7 +1780,306 @@ def serve_hybrid_phase(torch, cmm, fa):
     return launches
 
 
+# [train]'s learning gate: the trained params' loss on the first step's batch must fall
+# below the first step's loss by more than this. It is above the spread of the 8 steps'
+# losses on their own batches (0.0236) and well below the measured drop (10.9126 ->
+# 10.7402 on an NVIDIA H100 80GB HBM3 at 700 W).
+LEARN_MARGIN = 0.05
+
+
+def _counted(torch, fn, cmm, fa, counts: list):
+    """``fn`` (a train step) wrapped so that each call is counted alone: K1
+    and K2 set to 0 just before it, read just after it into ``counts``."""
+
+    def counted(*a, **k):
+        cmm.launches = fa.launches = 0
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        counts.append((cmm.launches, fa.launches))
+        return out
+
+    return counted
+
+
+def train_phase(torch, cmm, fa):
+    """``launch.train.train`` on smollm-135m at full width (30 layers, d 576,
+    vocab 49152), bf16 compute, remat full, AdamW, fake_quant + STE (QAT;
+    rows 16, 8/8 bits, an 8-bit ADC: with the default 5-bit ADC most tile
+    sums round to zero, the blocks' outputs vanish, and the gradients grow
+    ~10x a layer through the norms of the unchanged residual stream, in the
+    JAX package too, past float32 at 30 layers),
+    batch 4 x seq 1024 (two loss chunks of 512), lr 3e-4, warmup 2, 8 steps,
+    under ``torch.use_deterministic_algorithms``. K1 launches per step,
+    counted alone: 7 linears x 30 layers in the forward pass, and the same
+    again when remat recomputes each layer in the backward pass (the STE's
+    backward is a float product), so 420; K2 none (blocked attention).
+    The losses must be finite, the trained params' loss on the first step's
+    batch more than ``LEARN_MARGIN`` below the first step's loss (each step
+    trains on a new batch; 8 steps at lr 3e-4 move the loss on unseen
+    batches by less than the batches differ), and their loss on an unseen
+    batch no higher than the initial params'. Then the drill: ``stop_at=4``,
+    resume from the checkpoint to step 8; the losses must equal the
+    uninterrupted run's. Then steady steps timed with deterministic
+    algorithms off and on in turn, and one step profiled (device busy
+    share)."""
+    import shutil
+    import warnings
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.cim_linear import CiMConfig
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("smollm-135m"), cim=CiMConfig(mode="fake_quant", adc_bits=8))
+    assert (cfg.n_layers, cfg.d_model, cfg.vocab, cfg.compute_dtype, cfg.remat, cfg.optimizer, cfg.loss_chunk,
+            cfg.attn_impl, cfg.cim.ste, cfg.cim.rows) == (30, 576, 49152, "bfloat16", "full", "adamw", 512, "blocked",
+                                                          True, 16)
+    work = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(work, ignore_errors=True)
+    st = train_mod.TrainSettings(steps=8, batch=4, seq=1024, lr=3e-4, warmup=2, ckpt_dir=str(work / "full"),
+                                 ckpt_every=1000, log_every=1, seed=0)
+    per_step = []
+    real_build = train_mod.build_step
+
+    def counting_build(model, settings):
+        opt_init, step_fn = real_build(model, settings)
+        return opt_init, _counted(torch, step_fn, cmm, fa, per_step)
+
+    det = torch.are_deterministic_algorithms_enabled()
+    train_mod.build_step = counting_build
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.reset_peak_memory_stats()
+            full = train_mod.train(cfg, st, device="cuda")
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            st_b = dataclasses.replace(st, ckpt_dir=str(work / "drill"), ckpt_every=4)
+            first = train_mod.train(cfg, st_b, device="cuda", stop_at=4)
+            second = train_mod.train(cfg, st_b, device="cuda")
+    finally:
+        train_mod.build_step = real_build
+        torch.use_deterministic_algorithms(det)
+        shutil.rmtree(work, ignore_errors=True)  # ~1 GB of checkpoints
+    nondet = sorted({str(w.message).split(".")[0] for w in caught if "deterministic" in str(w.message)})
+    losses = full["losses"]
+    model = build_model(cfg, "cuda")
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=st.seq, global_batch=st.batch, seed=st.seed)
+    init = model.init(torch.Generator(device="cuda").manual_seed(st.seed))
+    fixed = {}  # loss of the initial and the trained params on step 0's batch and on an unseen one
+    with torch.no_grad():
+        for step in (0, st.steps):
+            b = {k: torch.from_numpy(v).cuda() for k, v in pipe.batch(step).items()}
+            fixed[step] = (float(model.loss_fn(init, b)[0]), float(model.loss_fn(full["params"], b)[0]))
+    del init
+    # Each step's loss is on a new batch, and 8 steps at lr 3e-4 move the loss on unseen
+    # batches by less than the batches differ, so the gate is the trained params' loss on
+    # the batch of the first step: it must fall by more than LEARN_MARGIN below the first
+    # step's loss (more than the spread of the 8 steps' losses), and the loss on the unseen
+    # batch of step 8 must not rise.
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"[train] losses {losses}: not finite")
+    if not fixed[0][1] < losses[0] - LEARN_MARGIN or not fixed[st.steps][1] <= fixed[st.steps][0]:
+        raise AssertionError(f"[train] on step 0's batch {fixed[0]} against the first loss {losses[0]} "
+                             f"(margin {LEARN_MARGIN}), on the unseen batch {fixed[st.steps]}: not learning")
+    want = (7 * cfg.n_layers * 2, 0)
+    if any(c != want for c in per_step):
+        raise AssertionError(f"[train] K1/K2 launches per step {per_step}, want {want} every step")
+    resumed = first["losses"] + second["losses"]
+    if nondet:
+        # an op without a deterministic CUDA form ran: hold the resumed run to 1e-6 of the loss
+        ok = all(abs(a - b) <= 1e-6 * abs(b) for a, b in zip(resumed, losses)) and len(resumed) == len(losses)
+    else:
+        ok = resumed == losses
+    if not ok:
+        raise AssertionError(f"[train] resumed losses {resumed} differ from the uninterrupted {losses}")
+    steady = statistics.median(full["step_s"][1:])
+    tokens = st.batch * st.seq
+    print(f"[train] smollm-135m full width, fake_quant (8-bit ADC) + STE, remat full, AdamW, batch {st.batch} x seq {st.seq}, "
+          f"8 steps: losses {[round(v, 4) for v in losses]}; step s {[round(v, 4) for v in full['step_s']]}; "
+          f"median of steps 1-7 {steady:.4f} s in this counted, deterministic run, first step {full['step_s'][0]:.4f} s; "
+          f"peak device memory {peak_gb:.2f} GB; launches per step {per_step[0]} (K1 = 7 x 30 forward + 7 x 30 "
+          f"remat recompute, K2 0) over all {len(per_step)} steps run")
+    print(f"[train] loss on step 0's batch: {fixed[0][0]:.4f} initial, {fixed[0][1]:.4f} after 8 steps (gate: below "
+          f"the first step's {losses[0]:.4f} less {LEARN_MARGIN}; the 8 losses spread {max(losses) - min(losses):.4f}); "
+          f"on the unseen batch of step {st.steps}: {fixed[st.steps][0]:.4f} initial, {fixed[st.steps][1]:.4f} after "
+          f"(gate: no rise); last training loss {losses[-1]:.4f} vs first {losses[0]:.4f}")
+    print(f"[train] drill: stop_at 4, resumed to 8: losses {'equal bit for bit' if resumed == losses else 'within 1e-6'} "
+          f"(deterministic algorithms on; ops without a deterministic CUDA form: {nondet or 'none'})")
+
+    # The step time and tokens/s come from steps outside the counted run, which adds a
+    # synchronize a step and runs with deterministic algorithms on: steady steps on one
+    # batch, deterministic algorithms off and on in turn (after a warm-up step of each).
+    opt_init, step_fn = real_build(model, st)
+    params = full["params"]
+    opt_state = opt_init(params)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in pipe.batch(8).items()}
+    steady_s = {False: [], True: []}
+    try:
+        for i, det_on in enumerate((False, True) * 4):
+            torch.use_deterministic_algorithms(det_on, warn_only=True)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            params, opt_state, _ = step_fn(params, opt_state, batch, 8)
+            torch.cuda.synchronize()
+            if i >= 2:  # the first of each mode is its warm-up
+                steady_s[det_on].append(time.time() - t0)
+    finally:
+        torch.use_deterministic_algorithms(det)
+    wall = statistics.median(steady_s[False])
+    det_wall = statistics.median(steady_s[True])
+    print(f"[train] steady steps: {wall:.4f} s median ({tokens / wall:.1f} tokens/s) with deterministic algorithms "
+          f"off, {det_wall:.4f} s median with them on (on/off {det_wall / wall:.3f}); "
+          f"off {[round(v, 4) for v in steady_s[False]]}, on {[round(v, 4) for v in steady_s[True]]}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        params, opt_state, _ = step_fn(params, opt_state, batch, 8)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    k1_ms = sum(e.self_device_time_total for e in kernels if "cim_fq_kernel" in e.key) / 1e3
+    if busy == 0:
+        print("[train] the profiler recorded no device time: busy share not measured")
+    else:
+        print(f"[train] one step: {wall:.4f} s wall unprofiled (the steady median), device busy {busy:.4f} s ({100 * busy / wall:.1f}% "
+              f"busy), {sum(e.count for e in kernels)} kernel launches, K1 {k1_ms:.3f} ms")
+        for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
+            print(f"[train]   {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+    del params, opt_state, full, first, second
+    torch.cuda.empty_cache()
+    return {"cim_matmul_fq": sum(c for c, _ in per_step[:st.steps]), "flash_attention": 0}
+
+
+def _grads_close(tag, what, got: dict, want: dict, rel: float) -> float:
+    """Largest |got - want| over the leaves, in units of each leaf's max|want|;
+    raises above ``rel``."""
+    worst = 0.0
+    for key, w in want.items():
+        g = got[key].detach().cpu().float()
+        w = w.detach().float()
+        err = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        worst = max(worst, err)
+        if err > rel:
+            raise AssertionError(f"[{tag}] {what} {key}: card vs CPU {err:.3g} of max (tol {rel})")
+    return worst
+
+
+def agreement_train_phase(torch):
+    """One training step of each reduced float32 family, card against CPU on
+    the same weights and batch: the loss (tol 1e-3 of itself), every
+    gradient leaf (1e-3 of its max|g|, as ``[agree]``'s logits), and the
+    AdamW update applied to the CPU's gradients on both devices (1e-6 of
+    max|p|: the same float32 arithmetic, ``pow`` aside). Each device's own
+    full step is printed beside it, in units of lr (a sign flip of a tiny
+    gradient moves a first Adam step by 2 lr)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.cim_linear import CiMConfig
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.train import value_and_grad
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.tree import leaves_with_path, path_key
+
+    flat = lambda tree: {path_key(p): v for p, v in leaves_with_path(tree)}  # noqa: E731
+    lr = 1e-3
+    for arch, over in (("smollm-135m", {"cim": CiMConfig(mode="fake_quant")}),
+                       ("qwen3-moe-30b-a3b", {"moe_impl": "dense"}), ("qwen3-moe-30b-a3b", {"moe_impl": "scatter"}),
+                       ("mamba2-130m", {}), ("zamba2-7b", {})):
+        cfg = dataclasses.replace(reduced(get_config(arch)), **over)
+        m_cpu, m_gpu = build_model(cfg, "cpu"), build_model(cfg, "cuda")
+        p_cpu = m_cpu.init(torch.Generator().manual_seed(3))
+        p_gpu = _to(p_cpu, "cuda")
+        b = {k: torch.from_numpy(v) for k, v in TokenPipeline(cfg.vocab, 64, 2, seed=5).batch(0).items()}
+        (l_cpu, _), g_cpu = value_and_grad(m_cpu.loss_fn, p_cpu, b)
+        (l_gpu, _), g_gpu = value_and_grad(m_gpu.loss_fn, p_gpu, _to(b, "cuda"))
+        tag = "agree-train"
+        name = f"{arch}{' ' + cfg.moe_impl if cfg.n_experts else ''}{' fake_quant+STE' if cfg.cim else ''}"
+        loss_err = abs(float(l_gpu) - float(l_cpu)) / abs(float(l_cpu))
+        if loss_err > 1e-3:
+            raise AssertionError(f"[{tag}] {name}: loss card {float(l_gpu)} vs CPU {float(l_cpu)}")
+        g_err = _grads_close(tag, f"{name} grad", flat(g_gpu), flat(g_cpu), 1e-3)
+        new_cpu, _, _ = adamw_update(g_cpu, adamw_init(p_cpu), p_cpu, lr)
+        new_gpu, _, _ = adamw_update(_to(g_cpu, "cuda"), adamw_init(p_gpu), p_gpu, lr)
+        scale = max(float(v.abs().max()) for v in flat(new_cpu).values())
+        u_err = max(float((flat(new_gpu)[k].cpu() - v).abs().max()) for k, v in flat(new_cpu).items()) / scale
+        if u_err > 1e-6:
+            raise AssertionError(f"[{tag}] {name}: AdamW update card vs CPU {u_err:.3g} of max|p|")
+        own_gpu, _, _ = adamw_update(g_gpu, adamw_init(p_gpu), p_gpu, lr)
+        own = max(float((flat(own_gpu)[k].cpu() - v).abs().max()) for k, v in flat(new_cpu).items()) / lr
+        print(f"[{tag}] reduced {name} f32: loss {float(l_cpu):.6f}, card vs CPU {loss_err:.3g} of it (tol 1e-3); "
+              f"{len(flat(g_cpu))} gradient leaves within {g_err:.3g} of their max (tol 1e-3); AdamW update on the "
+              f"same gradients within {u_err:.3g} of max|p| (tol 1e-6); each device's own step apart by at most "
+              f"{own:.3g} lr")
+
+
+def mnist_phase(torch, cmm, fa):
+    """The paper's MNIST experiment on the card at full width (256-128-64-10):
+    float training (4 epochs, accuracy > 0.93), QAT training through K1
+    (fake_quant 4/4 bits, rows 16, 5-bit: exactly 3 K1 launches a step), the
+    chip-geometry evaluation (bitplane, sar and sar_asym equal, within 0.05
+    of float) and the Fig. 7c/7d sweeps (10 MHz beats 100 MHz by > 0.1),
+    then the same params on the CPU: equal accuracy at the chip geometry and
+    at 10 MHz."""
+    from repro_torch.core.cim_linear import CiMConfig
+    from repro_torch.core.noise import AnalogEnv
+    from repro_torch.train import mnist_mlp as mm
+
+    t0 = time.time()
+    params, acc_f = mm.train_mlp(epochs=4, device="cuda")
+    t_float = time.time() - t0
+    if not acc_f > 0.93:
+        raise AssertionError(f"[mnist] float accuracy {acc_f} <= 0.93")
+    qat = CiMConfig(mode="fake_quant", a_bits=4, w_bits=4, adc_bits=5, rows=16, a_signed=False)
+    per_step = []
+    real = mm.sgd_step
+    mm.sgd_step = _counted(torch, real, cmm, fa, per_step)
+    try:
+        t0 = time.time()
+        _, acc_q = mm.train_mlp(epochs=4, qat_cim=qat, device="cuda")
+        t_qat = time.time() - t0
+    finally:
+        mm.sgd_step = real
+    if any(c != (3, 0) for c in per_step) or len(per_step) != 4 * 64:
+        raise AssertionError(f"[mnist] QAT launches per step {sorted(set(per_step))} over {len(per_step)} steps, "
+                             f"want (3, 0) in 256 steps")
+    print(f"[mnist] 256-128-64-10, 4 epochs of 64 steps: float accuracy {acc_f:.4f} ({t_float:.2f} s); QAT "
+          f"(fake_quant 4/4 bits, rows 16, 5-bit, STE) accuracy {acc_q:.4f} ({t_qat:.2f} s), K1 exactly 3 launches "
+          f"a step over {len(per_step)} steps, K2 0")
+    chip = CiMConfig(mode="bitplane", a_bits=4, w_bits=4, adc_bits=5, rows=16, a_signed=False, ste=False)
+    t0 = time.time()
+    acc_sar = mm.evaluate(params, chip, n_eval=2048)
+    acc_asym = mm.evaluate(params, dataclasses.replace(chip, search="sar_asym"), n_eval=2048)
+    if not (acc_sar >= acc_f - 0.05 and acc_sar == acc_asym):
+        raise AssertionError(f"[mnist] chip geometry: sar {acc_sar}, sar_asym {acc_asym}, float {acc_f}")
+    freq = {f: mm.evaluate(params, chip, AnalogEnv(freq_hz=f * 1e6), n_eval=512) for f in (10, 25, 50, 75, 100)}
+    vdd = {v: mm.evaluate(params, chip, AnalogEnv(vdd=v), n_eval=512) for v in (1.0, 0.9, 0.8, 0.7, 0.6)}
+    if not freq[10] > freq[100] + 0.1:
+        raise AssertionError(f"[mnist] Fig. 7c: 10 MHz {freq[10]} does not beat 100 MHz {freq[100]} by 0.1")
+    print(f"[mnist] chip geometry (bitplane 4/4 bits, rows 16, 5-bit), 2048 images: sar {acc_sar:.4f}, sar_asym "
+          f"{acc_asym:.4f} (float {acc_f:.4f}); Fig. 7c (MHz: accuracy, 512 images) {freq}; Fig. 7d (VDD: "
+          f"accuracy) {vdd}; {time.time() - t0:.2f} s")
+    for env, n_eval in ((None, 512), (AnalogEnv(freq_hz=10e6), 64)):
+        t0 = time.time()
+        l_gpu, y = mm._eval_logits(params, chip, env, n_eval, 0, "cuda")
+        l_cpu, _ = mm._eval_logits(params, chip, env, n_eval, 0, "cpu")
+        acc_gpu = float(torch.mean((torch.argmax(l_gpu, -1) == y).float()))
+        acc_cpu = float(torch.mean((torch.argmax(l_cpu, -1) == y.cpu()).float()))
+        diff = float((l_gpu.cpu() - l_cpu).abs().max())
+        where = "10 MHz" if env else "noiseless"
+        if acc_gpu != acc_cpu:
+            raise AssertionError(f"[mnist] {where}: card accuracy {acc_gpu} != CPU {acc_cpu}")
+        print(f"[mnist] card vs CPU, chip geometry {where}, {n_eval} images: accuracy {acc_gpu:.4f} on both, largest "
+              f"logit difference {diff:.3g} (max|logit| {float(l_cpu.abs().max()):.3g}); {time.time() - t0:.2f} s")
+    return {"cim_matmul_fq": sum(c for c, _ in per_step), "flash_attention": 0}
+
+
 def main() -> int:
+    # cuBLAS needs a fixed workspace for deterministic results ([train]'s drill);
+    # it must be set before the first cuBLAS call of the process
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -1830,6 +2163,12 @@ def main() -> int:
     with k1_recorder(cmm, served, "serve-hybrid"):
         hybrid_launches = serve_hybrid_phase(torch, cmm, fa)
     stamp("serve-moe, serve-mamba, serve-hybrid")
+    with k1_recorder(cmm, served, "train"):
+        train_launches = train_phase(torch, cmm, fa)
+    stamp("train")
+    with k1_recorder(cmm, served, "mnist-qat"):
+        mnist_launches = mnist_phase(torch, cmm, fa)
+    stamp("mnist")
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_served_phase(torch, cmm, served))
     stamp("k1-served")
     for impl in ("dense", "scatter"):
@@ -1837,6 +2176,8 @@ def main() -> int:
     agreement_phase(torch, arch="mamba2-130m", tag="agree-mamba")
     agreement_phase(torch, arch="zamba2-7b", tag="agree-hybrid")
     stamp("agree-moe, agree-mamba, agree-hybrid")
+    agreement_train_phase(torch)
+    stamp("agree-train")
     print(f"[time] host seconds by phase: {took}; {sum(took.values()):.1f} s in all")
     paths = {"serve": launches, "serve-moe dense": moe_launches["dense"],
              "serve-moe scatter": moe_launches["scatter"], "serve-mamba": mamba_launches,
@@ -1849,7 +2190,8 @@ def main() -> int:
                 for tag, v in graph.items() if "launches" in v},
              "graph smollm 1x3 scanned": {"cim_matmul_fq": graph["smollm 1x3"]["scan_launches"], "flash_attention": 0},
              "autotune": {"cim_matmul_fq": autotune["launches"], "flash_attention": 0},
-             **{f"serve-graph {tag}": counts for tag, counts in serve_graph_launches.items()}}
+             **{f"serve-graph {tag}": counts for tag, counts in serve_graph_launches.items()},
+             "train": train_launches, "mnist-qat": mnist_launches}
     for entry, name in ((k1, "cim_matmul_fq"), (k2, "flash_attention")):
         entry["launches_by_path"] = {path: counts[name] for path, counts in paths.items()}
 

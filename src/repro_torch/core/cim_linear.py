@@ -27,7 +27,8 @@ Modes ported so far:
 ``int8_dot`` is not ported yet (ROADMAP.md, port queue A10) and raises
 ``NotImplementedError``.
 ``ste=True`` wraps the quantized output in a straight-through estimator
-(``detach``) so the op is trainable.
+(``detach``) so the op is trainable (QAT): the forward value is the CiM
+product, the gradient that of the float product.
 """
 
 from __future__ import annotations
@@ -250,8 +251,11 @@ def cim_matmul(
     else:
         from repro_torch.kernels.ops import cim_matmul_op
 
+        # under the STE the kernel's output is a constant of autograd, so its
+        # operands need no graph
+        xq, wq = (x.detach(), w.detach()) if cfg.ste else (x, w)
         y = cim_matmul_op(
-            x, w, rows=cfg.rows, adc_bits=cfg.adc_bits, mode="fake_quant",
+            xq, wq, rows=cfg.rows, adc_bits=cfg.adc_bits, mode="fake_quant",
             a_bits=cfg.a_bits, w_bits=cfg.w_bits,
             a_signed=cfg.a_signed, w_signed=cfg.w_signed,
         )
@@ -267,8 +271,12 @@ def cim_matmul(
 
 def _ste(y_q: torch.Tensor, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Straight-through estimator: the forward value of ``y_q``, the gradient
-    of ``x @ w``."""
-    y_lin = x @ w
+    of ``x @ w``. As in the JAX package, the product is taken in the type
+    that ``x`` and ``w`` promote to (bf16 activations against float32
+    weights: float32) and the value is ``y_lin + (y_q - y_lin)``, which
+    rounds as JAX's does."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    y_lin = x.to(dt) @ w.to(dt)
     return y_lin + (y_q - y_lin).detach()
 
 

@@ -16,7 +16,8 @@ The kernel is chosen by the dtype of k/v before the launch
 (:func:`kernel_variant`): bf16 k/v, as on every serve path, take the
 tensor-core kernel (32-query blocks over 64-key tiles, float32 operands split
 exactly into bf16 pieces); float32 k/v the CUDA-core kernel. ``launches`` counts the
-launches of both.
+launches of both. It is forward-only, as the JAX package's flash path: under
+autograd it raises rather than cut the attention gradients.
 """
 
 from __future__ import annotations
@@ -121,7 +122,17 @@ def flash_attention(
 ) -> torch.Tensor:
     """Flash attention forward. CPU tensors take the plain version; CUDA
     tensors must be contiguous, float32 or bfloat16 (k and v of one dtype),
-    with head_dim <= 128, and launch the kernel. The output has q's dtype."""
+    with head_dim <= 128, and launch the kernel. The output has q's dtype.
+
+    Forward only, on every device: with grad mode on and any of q, k, v
+    requiring grad it raises ``RuntimeError``, since the kernel's output
+    would reach autograd as a constant and cut every attention gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention is forward-only, as the JAX package's flash path is (there is no "
+            "backward kernel); train with attn_impl=\"blocked\", or run the forward under "
+            "torch.no_grad()"
+        )
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_attention_plain(
             q, k, v, q_positions, causal=causal, sm_scale=sm_scale,

@@ -7,8 +7,11 @@ Conventions, as in the JAX package:
   * every matmul goes through :func:`dense`, which routes to the CiM-quantized
     op when the config enables the paper's technique.
   * prefill attention is blocked (online softmax over KV chunks) or, with
-    ``attn_impl="flash"``, the flash-attention CUDA kernel; decode
-    (Sq == 1) uses direct attention over the cache.
+    ``attn_impl="flash"``, the flash-attention CUDA kernel, which is
+    forward-only (it raises under autograd, so training takes the blocked
+    path); decode (Sq == 1) uses direct attention over the cache.
+  * the training loss is :func:`chunked_xent`, which never materializes the
+    (B, S, V) logits.
 
 One device: the JAX package's activation sharding constraints have no
 counterpart here. The KV cache is updated in place (the JAX functions return
@@ -22,6 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.cim_linear import CiMConfig, cim_matmul
@@ -42,9 +46,9 @@ __all__ = [
     "embed",
     "unembed_weight",
     "logits_step",
+    "chunked_xent",
     "layer_slice",
 ]
-
 
 def cdtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
@@ -209,7 +213,8 @@ def attention(
     positions: torch.Tensor,  # (S,)
     cache: Optional[dict] = None,  # one layer's cache, filled in place
 ):
-    """Full-sequence (prefill) GQA attention. Returns (out, cache)."""
+    """Full-sequence (training or prefill) GQA attention. Returns (out,
+    cache); without a cache (training) nothing is written."""
     b, s, d = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = h // kv
@@ -359,7 +364,7 @@ def mlp(p: dict, x: torch.Tensor, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
-# Embedding + logits
+# Embedding, chunked softmax cross-entropy, logits
 # ---------------------------------------------------------------------------
 
 
@@ -384,9 +389,48 @@ def unembed_weight(p: dict, cfg: ModelConfig):
     return p["unembed"]
 
 
+def _vocab_mask(cfg: ModelConfig, device) -> torch.Tensor:
+    return (torch.arange(cfg.padded_vocab, device=device) < cfg.vocab).float()
+
+
+def _chunk_loss(hi, li, w, vmask):
+    """(summed xent, count of labels >= 0) of one sequence chunk."""
+    logits = (hi @ w.to(hi.dtype)).float()
+    logits = logits + (vmask - 1.0) * 1e9  # mask padded vocab
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, torch.clamp(li, min=0)[..., None].long())[..., 0]
+    valid = (li >= 0).float()
+    return ((lse - picked) * valid).sum(), valid.sum()
+
+
+def chunked_xent(
+    p: dict,
+    h: torch.Tensor,  # (B, S, D) final hidden states
+    labels: torch.Tensor,  # (B, S) int, -1 = ignore
+    cfg: ModelConfig,
+) -> torch.Tensor:
+    """Mean next-token cross-entropy without materializing (B, S, V) logits.
+
+    Walks the sequence in ``cfg.loss_chunk`` slices; each slice's logits are
+    recomputed in the backward pass (``torch.utils.checkpoint``, as the JAX
+    package's ``jax.checkpoint``), and the sums are added in slice order."""
+    w = unembed_weight(p, cfg)
+    s = h.shape[1]
+    c = min(cfg.loss_chunk, s)
+    if s % c:
+        raise ValueError(f"sequence {s} is not a multiple of loss_chunk {c}: pad it")
+    vmask = _vocab_mask(cfg, h.device)
+    tot = torch.zeros((), device=h.device)
+    cnt = torch.zeros((), device=h.device)
+    for i in range(s // c):
+        cols = slice(i * c, (i + 1) * c)
+        l, v = checkpoint(_chunk_loss, h[:, cols], labels[:, cols], w, vmask, use_reentrant=False)
+        tot, cnt = tot + l, cnt + v
+    return tot / torch.clamp(cnt, min=1.0)
+
+
 def logits_step(p: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Decode-step logits (B, 1, V) in fp32, padded vocab masked to -1e9."""
     w = unembed_weight(p, cfg)
     logits = (h @ w.to(h.dtype)).float()
-    vmask = (torch.arange(cfg.padded_vocab, device=h.device) < cfg.vocab).float()
-    return logits + (vmask - 1.0) * 1e9
+    return logits + (_vocab_mask(cfg, h.device) - 1.0) * 1e9

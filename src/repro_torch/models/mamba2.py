@@ -16,10 +16,14 @@ package: ``in_z``, ``in_x`` (L, D, d_inner); ``in_b``, ``in_c`` (L, D, N);
 
 One device: the JAX package's sharding constraints have no counterpart here.
 The state is updated in place (the JAX functions return a new state); the
-functions return the same dict, so callers read it alike.
+functions return the same dict, so callers read it alike. The training
+forward runs ``mamba_forward`` without a state: it starts from zero and
+writes nothing.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -80,10 +84,12 @@ def mamba_forward(
     p: dict,
     x: torch.Tensor,  # (B, S, D)
     cfg: ModelConfig,
-    state: dict,  # one layer's state, written in place
+    state: Optional[dict] = None,  # one layer's state, written in place
 ):
-    """Full-sequence SSD from ``state["ssm"]``. Returns ``(y, state)``, the
-    final SSM state and conv tails left in ``state``."""
+    """Full-sequence SSD from ``state["ssm"]`` (zero without a state).
+    Returns ``(y, state)``: the final SSM state and conv tails are left in
+    ``state``; without one (training) nothing is written and the state
+    returned is None."""
     bsz, s_orig, d = x.shape
     di, h, n, ph = cfg.d_inner, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_headdim
     q = min(cfg.ssm_chunk, s_orig)
@@ -136,7 +142,7 @@ def mamba_forward(
     sterm = torch.einsum("bckn,bckh,bckhp->bchpn", bf, dtc * decay_out, xf)
     chunk_decay = torch.exp(da_cs[:, :, -1, :])  # (B, NC, H)
 
-    s_prev = state["ssm"].float()
+    s_prev = state["ssm"].float() if state is not None else torch.zeros((bsz, h, ph, n), device=x.device)
     s_prevs = []
     for c in range(nc):
         s_prevs.append(s_prev)
@@ -153,6 +159,8 @@ def mamba_forward(
     y = rms_norm(y * F.silu(z[:, :s_orig]), p["norm"], cfg.norm_eps)
     out = dense(y, p["out_proj"], None, cim)
 
+    if state is None:
+        return out, None
     w1 = cfg.ssm_conv_width - 1
 
     def tail(t):

@@ -1,6 +1,6 @@
 """Unified model API of the PyTorch port: ``build_model(cfg, device)`` ->
-init / make_cache / prefill / decode_step (counterpart of
-``repro.models.model``; training's forward and loss are not ported yet).
+init / forward / loss_fn / make_cache / prefill / decode_step (counterpart
+of ``repro.models.model``).
 
 Families:
   * dense / moe  -> ``transformer.py``
@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Any, Callable, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -26,6 +27,8 @@ class Model(NamedTuple):
     config: ModelConfig
     device: torch.device
     init: Callable[[torch.Generator], Any]  # (generator on device) -> params
+    forward: Callable[..., Any]  # (params, inputs) -> (h, aux)
+    loss_fn: Callable[..., Any]  # (params, batch) -> (loss, metrics)
     make_cache: Callable[..., Any]  # (batch, seq_len) -> cache
     prefill: Callable[..., Any]  # (params, inputs, cache) -> (logits_last, cache)
     decode_step: Callable[..., Any]  # (params, token, pos, cache) -> (logits, cache)
@@ -44,6 +47,20 @@ def _init_mamba_lm(gen: torch.Generator, cfg: ModelConfig):
         "ln": torch.zeros((cfg.n_layers, cfg.d_model), dtype=dt, device=dev),
         "ln_f": torch.zeros((cfg.d_model,), dtype=dt, device=dev),
     }
+
+
+def _mamba_lm_train(p, x_in, cfg: ModelConfig):
+    """The Mamba2 stack's training forward: no state, each layer recomputed
+    in the backward pass when ``cfg.remat != "none"``."""
+    x = L.embed(p["embed"], x_in, cfg)
+
+    def body(x, i):
+        y, _ = mamba2.mamba_forward(L.layer_slice(p["mamba"], i), L.rms_norm(x, p["ln"][i], cfg.norm_eps), cfg)
+        return x + y
+
+    for i in range(cfg.n_layers):
+        x = checkpoint(body, x, i, use_reentrant=False) if cfg.remat != "none" else body(x, i)
+    return L.rms_norm(x, p["ln_f"], cfg.norm_eps)
 
 
 def _mamba_lm_forward(p, x_in, cfg: ModelConfig, cache, decode=False):
@@ -76,6 +93,7 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
 
     if fam in ("dense", "moe"):
         init_fn = transformer.init_transformer
+        fwd = lambda p, x: transformer.transformer_forward(p, x, cfg)  # noqa: E731
 
         def make_cache(batch: int, seq_len: int):
             return L.make_attn_cache(cfg, batch, seq_len, cfg.n_layers, device)
@@ -90,6 +108,10 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
     elif fam == "mamba":
         init_fn = _init_mamba_lm
 
+        def fwd(p, x):
+            h = _mamba_lm_train(p, x, cfg)
+            return h, torch.zeros((), device=h.device)
+
         def make_cache(batch: int, seq_len: int):
             return mamba2.make_mamba_state(cfg, batch, cfg.n_layers, device)
 
@@ -103,6 +125,7 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
 
     elif fam == "hybrid":
         init_fn = zamba2.init_zamba
+        fwd = lambda p, x: zamba2.zamba_forward(p, x, cfg)  # noqa: E731
 
         def make_cache(batch: int, seq_len: int):
             return zamba2.make_zamba_cache(cfg, batch, seq_len, device)
@@ -122,4 +145,10 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
             raise ValueError(f"generator on {gen.device}, model on {device}")
         return init_fn(gen, cfg)
 
-    return Model(cfg, device, init, make_cache, prefill, decode_step)
+    def loss_fn(params, batch):
+        h, aux = fwd(params, batch["inputs"])
+        xent = L.chunked_xent(params["embed"], h, batch["labels"], cfg)
+        loss = xent + cfg.router_aux_weight * aux
+        return loss, {"xent": xent, "aux": aux}
+
+    return Model(cfg, device, init, fwd, loss_fn, make_cache, prefill, decode_step)

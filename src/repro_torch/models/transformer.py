@@ -1,20 +1,23 @@
 """Dense / GQA / MoE decoder stack of the PyTorch port (counterpart of
-``repro.models.transformer``; training's forward is not ported yet).
+``repro.models.transformer``): the training forward, prefill and decode.
 
 Per-layer parameters stay stacked on a leading L dim, as in the JAX package,
-and are walked with a Python loop where JAX uses ``lax.scan``. The KV cache
-is filled in place.
+and are walked with a Python loop where JAX uses ``lax.scan``. With
+``cfg.remat != "none"`` each training layer is recomputed in the backward
+pass (``torch.utils.checkpoint``, as JAX's ``jax.checkpoint`` of the scan
+body). The KV cache is filled in place.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.moe import init_moe, moe_ffn, moe_ffn_dense
 
-__all__ = ["init_transformer", "transformer_prefill", "transformer_decode"]
+__all__ = ["init_transformer", "transformer_forward", "transformer_prefill", "transformer_decode"]
 
 
 def init_transformer(gen: torch.Generator, cfg: ModelConfig):
@@ -41,6 +44,40 @@ def _ffn(p: dict, i: int, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         return L.mlp(L.layer_slice(p["mlp"], i), x, cfg)
     ffn = moe_ffn_dense if cfg.moe_impl == "dense" else moe_ffn
     return ffn(L.layer_slice(p["moe"], i), x, cfg)[0]
+
+
+def _block_train(x, lp, cfg: ModelConfig, positions):
+    """One training layer: (x, the layer's MoE aux loss or 0)."""
+    h, _ = L.attention(lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, positions)
+    x = x + h
+    hn = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    if cfg.n_experts:
+        ffn = moe_ffn_dense if cfg.moe_impl == "dense" else moe_ffn
+        y, aux = ffn(lp["moe"], hn, cfg)
+    else:
+        y, aux = L.mlp(lp["mlp"], hn, cfg), torch.zeros((), device=x.device)
+    return x + y, aux
+
+
+def _layer_params(p: dict, cfg: ModelConfig, i: int) -> dict:
+    ffn = "moe" if cfg.n_experts else "mlp"
+    return L.layer_slice({"attn": p["attn"], "ln1": p["ln1"], "ln2": p["ln2"], ffn: p[ffn]}, i)
+
+
+def transformer_forward(p: dict, x_in: torch.Tensor, cfg: ModelConfig):
+    """Training forward: (B, S) tokens or (B, S, D) embeddings -> (h, aux),
+    ``aux`` the MoE load-balance loss averaged over the layers."""
+    x = L.embed(p["embed"], x_in, cfg)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    aux = torch.zeros((), device=x.device)
+    for i in range(cfg.n_layers):
+        lp = _layer_params(p, cfg, i)
+        if cfg.remat != "none":
+            x, a = checkpoint(_block_train, x, lp, cfg, positions, use_reentrant=False)
+        else:
+            x, a = _block_train(x, lp, cfg, positions)
+        aux = aux + a
+    return L.rms_norm(x, p["ln_f"], cfg.norm_eps), aux / max(cfg.n_layers, 1)
 
 
 def transformer_prefill(p: dict, x_in: torch.Tensor, cfg: ModelConfig, cache: dict):

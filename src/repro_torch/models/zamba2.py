@@ -1,24 +1,27 @@
 """Zamba2-style hybrid of the PyTorch port: a Mamba2 backbone and one
-shared-weight attention block (counterpart of ``repro.models.zamba2``;
-training's forward is not ported yet).
+shared-weight attention block (counterpart of ``repro.models.zamba2``): the
+training forward, prefill and decode.
 
 ``n_layers`` Mamba2 layers are split into G = n_layers // share_period
 groups, each followed by the shared transformer block, and a tail of
 ``n_layers % share_period`` Mamba2 layers. The shared block's weights are
 the same at every application, but each application has its own KV cache.
 Layers are walked with Python loops where the JAX package uses ``lax.scan``;
-states and caches are filled in place.
+states and caches are filled in place. The training forward recomputes as
+the JAX package's does with ``cfg.remat != "none"``: each group (its Mamba2
+layers and the shared block) as one unit, and each tail layer alone.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.mamba2 import init_mamba, make_mamba_state, mamba_decode_step, mamba_forward
 
-__all__ = ["init_zamba", "zamba_prefill", "zamba_decode", "make_zamba_cache"]
+__all__ = ["init_zamba", "zamba_forward", "zamba_prefill", "zamba_decode", "make_zamba_cache"]
 
 
 def _split(cfg: ModelConfig):
@@ -57,7 +60,7 @@ def _schedule(cfg: ModelConfig):
         yield "mamba", i
 
 
-def _shared_block(x, shared, cfg, positions, cache, pos=None, decode=False):
+def _shared_block(x, shared, cfg, positions, cache=None, pos=None, decode=False):
     hn = L.rms_norm(x, shared["ln1"], cfg.norm_eps)
     if decode:
         h, _ = L.decode_attention(shared["attn"], hn, cfg, pos, cache)
@@ -77,6 +80,29 @@ def _walk(p: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict, positions=Non
         y, _ = step(L.layer_slice(p["mamba"], i), hn, cfg, L.layer_slice(cache["mamba"], i))
         x = x + y
     return L.rms_norm(x, p["ln_f"], cfg.norm_eps)
+
+
+def zamba_forward(p: dict, x_in: torch.Tensor, cfg: ModelConfig):
+    """Training forward -> (h, aux = 0)."""
+    x = L.embed(p["embed"], x_in, cfg)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    g, period, tail = _split(cfg)
+
+    def inner(x, i):
+        y, _ = mamba_forward(L.layer_slice(p["mamba"], i), L.rms_norm(x, p["mamba_ln"][i], cfg.norm_eps), cfg)
+        return x + y
+
+    def group(x, j):
+        for i in range(j * period, (j + 1) * period):
+            x = inner(x, i)
+        return _shared_block(x, p["shared"], cfg, positions)
+
+    remat = cfg.remat != "none"
+    for j in range(g):
+        x = checkpoint(group, x, j, use_reentrant=False) if remat else group(x, j)
+    for i in range(g * period, g * period + tail):
+        x = checkpoint(inner, x, i, use_reentrant=False) if remat else inner(x, i)
+    return L.rms_norm(x, p["ln_f"], cfg.norm_eps), torch.zeros((), device=x.device)
 
 
 def make_zamba_cache(cfg: ModelConfig, batch: int, seq_len: int, device):

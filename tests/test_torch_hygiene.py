@@ -48,6 +48,8 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.core.prng, repro_torch.core.noise, repro_torch.core.energy_area\n"
         "import repro_torch.core.schedule, repro_torch.core.cim_array\n"
         "import repro_torch.fabric, repro_torch.fabric.report\n"
+        "import repro_torch.data, repro_torch.train, repro_torch.optim, repro_torch.optim.grad_compression\n"
+        "import repro_torch.checkpoint, repro_torch.ft, repro_torch.launch.train, repro_torch.tree\n"
         "print('imported')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
