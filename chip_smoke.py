@@ -192,11 +192,32 @@ Phases, in order; any failure raises and the script exits non-zero:
     batch: the loss within 1e-3 of itself, every gradient leaf within 1e-3
     of its max, the AdamW update on the same gradients within 1e-6 of
     max|p|;
-27. the host seconds each group of phases took (``[time]``), one JSON line
+27. ``[dryrun]``: ``hw.HBM_BYTES`` against the card's memory; the
+    ``[train]`` cell planned on 1x1 (``launch.steps.build_cell``) and its
+    step counted by ``roofline.op_stats`` on fake CPU tensors and on the card
+    with real tensors: dot FLOPs and K1's counted work equal, K1's launches
+    equal to its counted calls, the plan's resident bytes equal to the real
+    arguments'; the step timed (median of 3) beside the counted roofline
+    (``t_compute``, ``t_memory``, model FLOPs over step time x peak); an
+    ``int8_dot`` decode of smollm-135m at batch 4 counted the same way, the
+    card's count equal to the fake tensors' (each product at 32 padded rows);
+    then smollm-135m ``train_4k`` and qwen3-moe ``decode_32k`` through
+    ``launch.dryrun.run_cell`` and hillclimb's
+    ``C_commandr_decode/opt_int8_weights`` on fake tensors (host seconds
+    each; records under ``build/dryrun/``);
+28. ``[int8]``: ``cim_matmul(mode="int8_dot")`` on the card bit for bit
+    equal to the CPU at the 7 linears of a smollm-135m layer, M 1024 and M 4
+    (the padded path); ``[serve-int8]``: smollm-135m with ``int8_dot`` and
+    the int8 KV cache, flash prefill, batch 4, prompt 256, 16 tokens (K1 0,
+    K2 30); ``[agree-int8]``: phase 6 with ``int8_dot`` and the int8 KV
+    cache;
+29. ``[example]``: ``repro_torch.examples.fabric_map`` (main and
+    ``--graph``) on the card, with its own asserts;
+30. the host seconds each group of phases took (``[time]``), one JSON line
     of every kernel with its launches (from phase 4; per path in
-    ``launches_by_path``, ``train`` and ``mnist-qat`` among them), times
-    and bound, the card's line again, and the final ``{"ok": true, ...}``
-    line.
+    ``launches_by_path``, ``train``, ``mnist-qat``, ``dryrun train step``
+    and ``serve-int8`` among them), times and bound, the card's line again,
+    and the final ``{"ok": true, ...}`` line.
 
 Every number printed stands after the card's name and power limit (phase 1,
 repeated before the last line). It imports nothing of JAX or of the JAX
@@ -1953,6 +1974,204 @@ def train_phase(torch, cmm, fa):
     return {"cim_matmul_fq": sum(c for c, _ in per_step[:st.steps]), "flash_attention": 0}
 
 
+def dryrun_phase(torch, cmm, fa):
+    """The ``[train]`` cell planned and counted (``launch.steps``,
+    ``roofline.op_stats``): smollm-135m full width, fake_quant + STE with an
+    8-bit ADC, remat, AdamW, batch 4 x seq 1024, on a 1x1 plan. Its step is
+    counted once on fake CPU tensors and once on the card with real tensors
+    under the same counter: the dot FLOPs and K1's counted work must be
+    equal, and the plan's resident bytes must equal the bytes of the real
+    params, AdamW state, batch and step. The step is timed on the card
+    (median of 3 after a warm-up, host clock, deterministic algorithms off)
+    beside the counted roofline. Then three production cells are planned
+    and counted on fake tensors (host seconds each). Returns K1's and K2's
+    launches in the counted card step."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.core.cim_linear import CiMConfig
+    from repro_torch.launch import dryrun, hillclimb
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import build_cell, count_step, materialize
+    from repro_torch.roofline import hw, op_stats
+    from repro_torch.roofline.analysis import roofline
+    from repro_torch.tree import tree_leaves
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    if not 0.95 * hw.HBM_BYTES <= total <= 1.1 * hw.HBM_BYTES:
+        raise AssertionError(f"[dryrun] the card has {total} bytes of memory; hw.HBM_BYTES is {hw.HBM_BYTES}")
+    print(f"[dryrun] hw: {hw.NAME} datasheet peaks: {hw.PEAK_FLOPS_BF16:.4g} bf16 FLOP/s, {hw.HBM_BW:.4g} HBM B/s, "
+          f"HBM_BYTES {hw.HBM_BYTES} (the card reports {total} bytes)")
+    cfg = dataclasses.replace(get_config("smollm-135m"), cim=CiMConfig(mode="fake_quant", adc_bits=8))
+    shape = ShapeConfig("smoke_train", 1024, 4, "train")
+    SHAPES[shape.name] = shape
+    mesh = make_local_mesh()
+    try:
+        t0 = time.time()
+        cell = build_cell("smollm-135m", shape.name, mesh, cfg_override=cfg)
+        fake = count_step(cell)
+        t_fake = time.time() - t0
+        resident = dryrun.resident_bytes(cell, mesh)
+        card_cell = build_cell("smollm-135m", shape.name, mesh, cfg_override=cfg, device="cuda")
+        args = materialize(card_cell, "cuda", seed=0)
+    finally:
+        del SHAPES[shape.name]
+    real_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(args[:3])) + card_cell.args[3].element_size()
+    if real_bytes != resident:
+        raise AssertionError(f"[dryrun] resident bytes {resident} of the plan, {real_bytes} of the real arguments")
+    steps = []
+    for _ in range(4):  # a warm-up, then 3 timed steps
+        torch.cuda.synchronize()
+        t0 = time.time()
+        card_cell.fn(*args)
+        torch.cuda.synchronize()
+        steps.append(time.time() - t0)
+    step_s = statistics.median(steps[1:])
+    cmm.launches = fa.launches = 0
+    with op_stats.count_ops() as counter:
+        card_cell.fn(*args)
+        torch.cuda.synchronize()
+    launches = {"cim_matmul_fq": cmm.launches, "flash_attention": fa.launches}
+    card = counter.stats
+    del args
+    torch.cuda.empty_cache()
+    if card.dot_flops != fake.dot_flops or card.kernels.get("cim_matmul_fq") != fake.kernels.get("cim_matmul_fq"):
+        raise AssertionError(f"[dryrun] the card's count (dot FLOPs {card.dot_flops}, K1 {card.kernels}) differs from "
+                             f"the fake tensors' ({fake.dot_flops}, {fake.kernels})")
+    if launches["cim_matmul_fq"] != fake.kernels["cim_matmul_fq"]["calls"]:
+        raise AssertionError(f"[dryrun] K1 launched {launches} times in the counted step, counted {fake.kernels}")
+    rep = roofline("smollm-135m", shape, cfg, fake, 1, {"bytes": resident})
+    mfu = rep.model_flops / (step_s * hw.PEAK_FLOPS_BF16)
+    print(f"[dryrun] [train] cell (smollm-135m full width, fake_quant 8-bit ADC + STE, remat, AdamW, batch 4 x seq 1024, "
+          f"1x1): counted on fake tensors in {t_fake:.1f} s host; dot FLOPs {fake.dot_flops:.6g} (card {card.dot_flops:.6g}, "
+          f"equal), K1 {fake.kernels['cim_matmul_fq']} (card equal, {launches['cim_matmul_fq']} launches), op bytes "
+          f"{fake.op_bytes:.6g} fake / {card.op_bytes:.6g} card, {fake.n_ops} aten ops; resident {resident} bytes "
+          f"= the real arguments' ({resident / 2**30:.3f} GiB, fits one H100: {'yes' if resident <= hw.HBM_BYTES else 'no'})")
+    print(f"[dryrun] roofline: t_compute {rep.t_compute * 1e3:.3f} ms, t_memory {rep.t_memory * 1e3:.3f} ms "
+          f"(eager op bytes), bottleneck {rep.bottleneck}, MODEL/counted FLOPs {rep.useful_ratio:.3f}; measured step "
+          f"{step_s:.4f} s (median of {[round(v, 4) for v in steps[1:]]}, warm-up {steps[0]:.4f} s); model FLOPs "
+          f"{rep.model_flops:.6g} / (step x peak bf16) = {mfu:.5f}; counted FLOPs / step = "
+          f"{fake.dot_flops / step_s / 1e12:.2f} TFLOP/s")
+    # an int8_dot decode at batch 4: the card pads each product's 4 rows to
+    # 32, and the fake tensors' count reports that padded work
+    icfg = dataclasses.replace(get_config("smollm-135m"), cim=CiMConfig(mode="int8_dot", ste=False))
+    ishape = ShapeConfig("smoke_decode", 256, 4, "decode")
+    SHAPES[ishape.name] = ishape
+    try:
+        ifake = count_step(build_cell("smollm-135m", ishape.name, mesh, cfg_override=icfg))
+        icell = build_cell("smollm-135m", ishape.name, mesh, cfg_override=icfg, device="cuda")
+        iargs = materialize(icell, "cuda", seed=0)
+    finally:
+        del SHAPES[ishape.name]
+    with op_stats.count_ops() as icounter:
+        icell.fn(*iargs)
+        torch.cuda.synchronize()
+    del iargs
+    icard, mm = icounter.stats, ifake.kernels["int8_mm"]
+    d, q, kv = icfg.d_model, icfg.n_heads * icfg.head_dim, icfg.n_kv_heads * icfg.head_dim
+    kn = d * q + 2 * d * kv + q * d + 3 * d * icfg.d_ff  # the 7 products of a layer
+    if icard.dot_flops != ifake.dot_flops or icard.kernels != ifake.kernels:
+        raise AssertionError(f"[dryrun] int8_dot decode: the card's count (dot FLOPs {icard.dot_flops}, "
+                             f"{icard.kernels}) differs from the fake tensors' ({ifake.dot_flops}, {ifake.kernels})")
+    if mm["calls"] != 7 * icfg.n_layers or mm["dot_flops"] != 2.0 * 32 * kn * icfg.n_layers:
+        raise AssertionError(f"[dryrun] int8_dot decode: int8_mm counted {mm}, want 210 calls on 32 rows each")
+    print(f"[dryrun] int8_dot decode cell (smollm-135m full width, batch 4, cache 256, 1x1): dot FLOPs "
+          f"{ifake.dot_flops:.6g} fake = card, int8_mm {mm} (210 products on 32 padded rows) fake = card")
+    out = ROOT / "build" / "dryrun"
+    for arch, shape_name in (("smollm-135m", "train_4k"), ("qwen3-moe-30b-a3b", "decode_32k")):
+        t0 = time.time()
+        rec = dryrun.run_cell(arch, shape_name, False, out / "torch_dryrun", force=True)
+        if rec["status"] != "ok":
+            raise AssertionError(f"[dryrun] {arch} {shape_name}: {rec.get('error')}")
+        print(f"[dryrun] {arch} {shape_name} singlepod: {time.time() - t0:.1f} s host")
+    t0 = time.time()
+    rec = hillclimb.run_variant("C_commandr_decode/opt_int8_weights", force=True, out=out / "torch_hillclimb")
+    if rec["status"] != "ok":
+        raise AssertionError(f"[dryrun] hillclimb C1: {rec.get('error')}")
+    print(f"[dryrun] C_commandr_decode/opt_int8_weights: {time.time() - t0:.1f} s host")
+    return launches
+
+
+def int8_phase(torch):
+    """``cim_matmul(mode="int8_dot")`` on the card against the CPU at the
+    smollm-135m serving shapes (bf16 activations, float32 weights; M 1024 a
+    prefill, M 4 a decode step, which the CUDA int8 product takes padded
+    with zero rows), and at the reduced configs' shapes (K, N 64 and 128)
+    for M 1 to 65 and 1000: bit for bit. Device ms per layer (7 linears)."""
+    from repro_torch.core import cim_linear as cl
+
+    cfg = cl.CiMConfig(mode="int8_dot", ste=False)
+    gen = torch.Generator().manual_seed(7)
+    for m in (1, 2, 4, 16, 17, 24, 33, 64, 65, 1000):
+        for k, n in ((64, 64), (64, 16), (128, 64), (64, 256), (576, 192), (1536, 576)):
+            x = torch.randn((m, k), generator=gen)
+            w = torch.randn((k, n), generator=gen)
+            if not torch.equal(cl.cim_matmul(x.cuda(), w.cuda(), cfg).cpu(), cl.cim_matmul(x, w, cfg)):
+                raise AssertionError(f"[int8] M{m} K{k} N{n}: card differs from the CPU")
+    per_layer = {}
+    for m in (1024, 4):
+        ms = 0.0
+        for k, n in LAYER_LINEARS:
+            x = torch.randn((m, k), generator=gen).to(torch.bfloat16)
+            w = torch.randn((k, n), generator=gen) / math.sqrt(k)
+            y_cpu = cl.cim_matmul(x, w, cfg)
+            xg, wg = x.cuda(), w.cuda()
+            y = cl.cim_matmul(xg, wg, cfg)
+            if not torch.equal(y.cpu(), y_cpu):
+                raise AssertionError(f"[int8] M{m} K{k} N{n}: card differs from the CPU by "
+                                     f"{float((y.cpu().float() - y_cpu.float()).abs().max())}")
+            ms += time_ms(lambda: cl.cim_matmul(xg, wg, cfg))
+        per_layer[m] = ms
+    print(f"[int8] int8_dot (torch._int_mm, s8 x s8 -> s32) bit-exact card vs CPU at the 7 linears of a smollm layer, "
+          f"M 1024 and M 4 (padded to {cl._int8_rows(4)} rows), and the reduced shapes at M 1..65 and 1000; device ms per layer "
+          f"with quantization: "
+          f"{per_layer[1024]:.4f} (M 1024), {per_layer[4]:.4f} (M 4)")
+
+
+def serve_int8_phase(torch, cmm, fa):
+    """smollm-135m at full width with ``int8_dot`` linears and the int8 KV
+    cache, flash prefill, batch 4, prompt 256, 16 tokens: K1 none, K2 30."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.cim_linear import CiMConfig
+    from repro_torch.launch.serve import ServeSettings, serve_batch
+
+    cfg = dataclasses.replace(get_config("smollm-135m"), cim=CiMConfig(mode="int8_dot", ste=False),
+                              attn_impl="flash", kv_quant_int8=True)
+    st = ServeSettings(batch=4, prompt_len=256, gen_len=16, seed=0)
+    serve_batch(cfg, dataclasses.replace(st, gen_len=2), device="cuda")  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    cmm.launches = fa.launches = 0
+    out = serve_batch(cfg, st, device="cuda")
+    launches = {"cim_matmul_fq": cmm.launches, "flash_attention": fa.launches}
+    if launches != {"cim_matmul_fq": 0, "flash_attention": cfg.n_layers}:
+        raise AssertionError(f"[serve-int8] launches {launches}, want K1 0 and K2 {cfg.n_layers}")
+    gen = out["generated"]
+    if gen.shape != (st.batch, st.gen_len) or gen.min() < 0 or gen.max() >= cfg.vocab:
+        raise AssertionError(f"[serve-int8] generated tokens out of range or shape: {gen.shape}")
+    if not bool(torch.isfinite(out["logits"][..., : cfg.vocab]).all()):
+        raise AssertionError("[serve-int8] logits are not finite")
+    print(f"[serve-int8] smollm-135m, 30 layers, int8_dot + int8 KV cache + flash, batch 4, prompt 256, gen 16: "
+          f"prefill {out['prefill_s']:.4f} s, decode {out['decode_s']:.4f} s ({out['decode_tok_s']:.2f} tok/s), "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches {launches}")
+    return launches
+
+
+def example_phase(torch):
+    """``python -m repro_torch.examples.fabric_map`` and its ``--graph`` form
+    on the card (their own asserts; the check lines printed)."""
+    import io
+
+    from repro_torch.examples import fabric_map
+
+    for fn in (fabric_map.main, fabric_map.graph_demo):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            fn("cuda")
+        for line in buf.getvalue().splitlines():
+            if line.startswith("[") or "checks passed" in line:
+                print(f"[example] {line}")
+
+
 def _grads_close(tag, what, got: dict, want: dict, rel: float) -> float:
     """Largest |got - want| over the leaves, in units of each leaf's max|want|;
     raises above ``rel``."""
@@ -2178,6 +2397,14 @@ def main() -> int:
     stamp("agree-moe, agree-mamba, agree-hybrid")
     agreement_train_phase(torch)
     stamp("agree-train")
+    dryrun_launches = dryrun_phase(torch, cmm, fa)
+    stamp("dryrun")
+    int8_phase(torch)
+    serve_int8_launches = serve_int8_phase(torch, cmm, fa)
+    agreement_phase(torch, mode="int8_dot", tag="agree-int8", kv_quant_int8=True)
+    stamp("int8, serve-int8, agree-int8")
+    example_phase(torch)
+    stamp("example")
     print(f"[time] host seconds by phase: {took}; {sum(took.values()):.1f} s in all")
     paths = {"serve": launches, "serve-moe dense": moe_launches["dense"],
              "serve-moe scatter": moe_launches["scatter"], "serve-mamba": mamba_launches,
@@ -2191,7 +2418,8 @@ def main() -> int:
              "graph smollm 1x3 scanned": {"cim_matmul_fq": graph["smollm 1x3"]["scan_launches"], "flash_attention": 0},
              "autotune": {"cim_matmul_fq": autotune["launches"], "flash_attention": 0},
              **{f"serve-graph {tag}": counts for tag, counts in serve_graph_launches.items()},
-             "train": train_launches, "mnist-qat": mnist_launches}
+             "train": train_launches, "mnist-qat": mnist_launches, "dryrun train step": dryrun_launches,
+             "serve-int8": serve_int8_launches}
     for entry, name in ((k1, "cim_matmul_fq"), (k2, "flash_attention")):
         entry["launches_by_path"] = {path: counts[name] for path, counts in paths.items()}
 

@@ -6,7 +6,7 @@ split into tiles of ``rows`` (one CiM array's word lines each),
 activations/weights are quantized to ``a_bits``/``w_bits``, and every tile's
 product-sum is digitized before the tiles are accumulated.
 
-Modes ported so far:
+Modes:
 
   * ``exact``      — plain matmul (no CiM).
   * ``bitplane``   — faithful per-plane simulation: every (input-plane ×
@@ -24,8 +24,12 @@ Modes ported so far:
                      (``repro_torch.kernels.cim_matmul``), on a CPU tensor its
                      plain PyTorch version.
 
-``int8_dot`` is not ported yet (ROADMAP.md, port queue A10) and raises
-``NotImplementedError``.
+  * ``int8_dot``   — integer product-sums of 8-bit codes (s8 x s8 -> s32,
+                     ``torch._int_mm`` on every device, as the JAX package
+                     takes a plain ``dot_general`` outside any Pallas kernel),
+                     the activation scaled per tensor and the weight per
+                     output column.
+
 ``ste=True`` wraps the quantized output in a straight-through estimator
 (``detach``) so the op is trainable (QAT): the forward value is the CiM
 product, the gradient that of the float product.
@@ -39,6 +43,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import work
 from repro_torch.core import prng
 from repro_torch.core import search_tree as st
 from repro_torch.core.adc import ADCConfig, convert, make_reference_ladder
@@ -214,10 +219,61 @@ def _fake_quant_matmul(x_int, w_int, cfg: CiMConfig):
     return cim_matmul_fq(x_int, w_int, rows=r, step=step), step
 
 
-def _not_ported(mode: str):
-    return NotImplementedError(
-        f"CiM mode {mode!r} is not ported to PyTorch yet (ROADMAP.md, port queue A10)"
-    )
+INT_MM_ROWS = 32  # the CUDA int8 product runs on a multiple of 32 rows
+
+
+def _int8_rows(m: int) -> int:
+    """Rows the CUDA int8 product runs on: ``m`` rounded up to a multiple of
+    32 (torch's ``_int_mm`` takes M > 16, and on an H100 cuBLASLt rejected
+    M 17 and M 40 at K = N = 64 while M 32 and 256 ran)."""
+    return -(-m // INT_MM_ROWS) * INT_MM_ROWS
+
+
+def _int8_work(x_int, w_int):
+    """The card's int8 product for ``roofline.op_stats``, on every device:
+    ``_int_mm`` over :func:`_int8_rows` rows (int8 in, int32 out), and where
+    M is padded, the pad's copy (M rows read, the padded rows written)."""
+    (m, k), n = x_int.shape, w_int.shape[1]
+    rows = _int8_rows(m)
+    pad = m * k + rows * k if rows != m else 0
+    return 2.0 * rows * k * n, 2.0 * rows * k * n, rows * k + k * n + 4 * rows * n + pad
+
+
+@work.kernel("int8_mm", _int8_work)
+def _int8_product(x_int: torch.Tensor, w_int: torch.Tensor) -> torch.Tensor:
+    """x_int (M, K) @ w_int (K, N) of int8 codes, summed exactly in int32
+    (K·127² < 2^31 for every K up to 133,000). On CUDA, cuBLAS takes K and N
+    multiples of 8: M is padded with zero rows (:func:`_int8_rows`), which
+    leave the other rows' sums as they are; a K or N it cannot take raises
+    (the product never goes through floats). An op counter sees the card's
+    padded work on every device (:func:`_int8_work`)."""
+    m, k = x_int.shape
+    n = w_int.shape[1]
+    if not x_int.is_cuda:
+        return torch._int_mm(x_int, w_int)
+    if k % 8 or n % 8:
+        raise ValueError(f"int8_dot on CUDA takes K and N multiples of 8; got K={k}, N={n}")
+    rows = _int8_rows(m)
+    if rows != m:
+        x_int = F.pad(x_int, (0, 0, 0, rows - m))
+    return torch._int_mm(x_int, w_int)[:m]
+
+
+def _int8_dot(x: torch.Tensor, w: torch.Tensor, cfg: CiMConfig) -> torch.Tensor:
+    """The ``int8_dot`` mode, computed as the JAX package computes it: the
+    quantized product ``y_i32 · sx · sw`` in float32, the STE's
+    ``y_lin + (y_q - y_lin)`` in ``y_lin``'s type, cast to ``x``'s type."""
+    batch_shape = x.shape[:-1]
+    xm = x.reshape(-1, x.shape[-1])
+    x_int, sx = quantize_symmetric(xm, 8, True)
+    w_int, sw = quantize_symmetric(w, 8, True, per_axis=-1)
+    y_i32 = _int8_product(x_int.to(torch.int8), w_int.to(torch.int8))
+    y = y_i32.float() * sx * sw
+    if cfg.ste:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        y_lin = xm.to(dt) @ w.to(dt)
+        y = y_lin + (y.to(y_lin.dtype) - y_lin).detach()
+    return y.reshape(*batch_shape, w.shape[1]).to(x.dtype)
 
 
 def cim_matmul(
@@ -233,11 +289,11 @@ def cim_matmul(
     (a ``core.prng`` key) draws the bit-plane ADC's noise; ``fake_quant``
     and ``exact`` ignore it, as in the JAX package.
     """
-    if cfg.mode == "int8_dot":
-        raise _not_ported(cfg.mode)
     stats = None
     if cfg.mode == "exact":
         y = x @ w
+    elif cfg.mode == "int8_dot":
+        y = _int8_dot(x, w, cfg)
     elif cfg.mode == "bitplane":
         batch_shape = x.shape[:-1]
         xm = x.reshape(-1, x.shape[-1])

@@ -8,6 +8,7 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor, unset_fake_temporarily
 
 __all__ = ["divisor", "resolve_device", "synchronize"]
 
@@ -36,7 +37,13 @@ def divisor(value: float, like: torch.Tensor, dtype=torch.float32) -> torch.Tens
     Dividing by it is a true IEEE divide on every device, as on the CPU and
     in eager JAX: CUDA divides a tensor by a Python scalar through its
     reciprocal. Each constant is filled once per device and kept, so a call
-    costs neither a copy from the host (a wait for the stream) nor a launch."""
+    costs neither a copy from the host (a wait for the stream) nor a launch.
+    A fake tensor (``FakeTensorMode``, the dry-run's counts) gets the kept
+    real constant, made outside the fake mode, which lifts it: a fake
+    constant is never kept."""
+    if isinstance(like, FakeTensor):
+        with unset_fake_temporarily():
+            return _constant(value, dtype, like.device)
     return _constant(value, dtype, like.device)
 
 

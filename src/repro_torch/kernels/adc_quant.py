@@ -21,6 +21,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch import work
 
 __all__ = ["adc_quant", "adc_quant_plain", "launches"]
 
@@ -33,6 +34,7 @@ def adc_quant_plain(v: torch.Tensor, *, bits: int, vdd: float = 1.0) -> torch.Te
     return ref.adc_quant_ref(v, bits, vdd)
 
 
+@work.kernel("adc_quant", lambda v, **_: (0.0, 5.0 * v.numel(), 8 * v.numel()))
 def adc_quant(v: torch.Tensor, *, bits: int, vdd: float = 1.0) -> torch.Tensor:
     """Ideal ADC quantize + reconstruct of the analog values ``v``.
 

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from repro_torch.device import divisor
 from repro_torch.kernels import build, ref
+from repro_torch import work
 
 __all__ = [
     "cim_matmul_fq", "cim_matmul_fq_plain", "fq_cluster_size", "fq_thresholds", "launches",
@@ -61,6 +62,14 @@ def cim_matmul_fq_plain(
     return (torch.round(partial / step_t) * step_t).sum(dim=1)
 
 
+def _fq_work(x_int, w_int, *, rows, step):
+    """K1's work for ``op_stats``: the int8 tile dots, int8 operands in and
+    float32 out (its bound in ``PERF.md``), whatever the operands' dtype."""
+    (m, k), n = x_int.shape, w_int.shape[1]
+    return 2.0 * m * k * n, 2.0 * m * k * n, m * k + k * n + 4 * m * n
+
+
+@work.kernel("cim_matmul_fq", _fq_work)
 def cim_matmul_fq(
     x_int: torch.Tensor, w_int: torch.Tensor, *, rows: int, step: float
 ) -> torch.Tensor:
@@ -195,6 +204,15 @@ def cim_matmul_bp_plain(
     )
 
 
+def _bp_work(x_pat, w_pat, *, a_bits, w_bits, **_):
+    """K3's work for ``op_stats``: a plane dot per (plane pair, m, k, n),
+    uint8 patterns in and float32 out (its algorithm's bound in ``PERF.md``)."""
+    (m, k), n = x_pat.shape, w_pat.shape[1]
+    dots = 2.0 * a_bits * w_bits * m * k * n
+    return dots, dots, m * k + k * n + 4 * m * n
+
+
+@work.kernel("cim_matmul_bp", _bp_work)
 def cim_matmul_bp(
     x_pat: torch.Tensor, w_pat: torch.Tensor, *, rows: int, adc_bits: int,
     a_bits: int, w_bits: int, a_signed: bool = True, w_signed: bool = True,

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
+from repro_torch import work
 
 __all__ = ["flash_attention", "flash_attention_plain", "kernel_variant", "launches"]
 
@@ -109,6 +110,22 @@ def flash_attention_plain(
     return out.reshape(b, h, sq, hd).to(q.dtype)
 
 
+def _work(q, k, v, q_positions=None, *, causal=True, **_):
+    """K2's work for ``op_stats``: q.k and p.v over the (query, key) pairs
+    it computes (causal: key <= query position, positions 0 .. Sq - 1), six
+    bf16 tensor-core passes of them for bf16 k/v (two CUDA-core passes for
+    float32), q, k, v in and the output out once (its bound in ``PERF.md``)."""
+    b, h, sq, hd = q.shape
+    sk = k.shape[2]
+    n = min(sq, sk)
+    pairs = b * h * (n * (n + 1) // 2 + (sq - n) * sk if causal else sq * sk)
+    dots = 2.0 * 2 * hd * pairs
+    passes = 3 if k.dtype == torch.bfloat16 else 1
+    n_bytes = 2 * q.numel() * q.element_size() + (k.numel() + v.numel()) * k.element_size()
+    return dots, passes * dots, n_bytes
+
+
+@work.kernel("flash_attention", _work)
 def flash_attention(
     q: torch.Tensor,  # (B, H, Sq, hd)
     k: torch.Tensor,  # (B, KV, Sk, hd)  KV divides H (GQA)

@@ -1,5 +1,6 @@
-"""The ``(data, model)`` chip mesh of the multi-chip CiM fabric (counterpart
-of ``repro.launch.mesh.make_chip_mesh``).
+"""Meshes of the port (counterpart of ``repro.launch.mesh``): the production
+meshes of the dry-run planner and the ``(data, model)`` chip mesh of the
+multi-chip CiM fabric.
 
 In the port every chip of a mesh runs on one torch device, so a mesh is its
 shape only: the planning paths (``launch.shardings.spec_for``'s
@@ -12,34 +13,53 @@ check.
 from __future__ import annotations
 
 import dataclasses
+import math
 from collections import OrderedDict
 
-__all__ = ["ChipMesh", "make_chip_mesh"]
+__all__ = ["Mesh", "make_production_mesh", "make_local_mesh", "make_chip_mesh"]
 
 
 @dataclasses.dataclass(frozen=True)
-class ChipMesh:
-    """A shape-only ``(data, model)`` mesh: ``shape`` maps each axis name to
-    its size, in axis order.
+class Mesh:
+    """A shape-only mesh of named axes, ``axes`` = ``((name, size), ...)`` in
+    axis order, the ``pod`` axis included where the mesh has one.
 
     Example::
 
-        >>> mesh = ChipMesh(2, 4)
-        >>> mesh.axis_names, dict(mesh.shape)
-        (('data', 'model'), {'data': 2, 'model': 4})
+        >>> mesh = Mesh((("pod", 2), ("data", 16), ("model", 16)))
+        >>> mesh.axis_names, mesh.size
+        (('pod', 'data', 'model'), 512)
     """
 
-    data: int
-    model: int
+    axes: tuple
 
-    axis_names = ("data", "model")
+    @property
+    def axis_names(self) -> tuple:
+        return tuple(name for name, _ in self.axes)
 
     @property
     def shape(self) -> "OrderedDict[str, int]":
-        return OrderedDict((("data", self.data), ("model", self.model)))
+        return OrderedDict(self.axes)
+
+    @property
+    def size(self) -> int:
+        return math.prod(size for _, size in self.axes)
 
 
-def make_chip_mesh(data: int = 1, model: int = 1) -> ChipMesh:
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """Single pod: (16, 16) = (data, model) = 256 chips.
+    Multi-pod: (2, 16, 16) = (pod, data, model) = 512 chips."""
+    if multi_pod:
+        return Mesh((("pod", 2), ("data", 16), ("model", 16)))
+    return Mesh((("data", 16), ("model", 16)))
+
+
+def make_local_mesh() -> Mesh:
+    """Degenerate 1x1 mesh: one device."""
+    return Mesh((("data", 1), ("model", 1)))
+
+
+def make_chip_mesh(data: int = 1, model: int = 1) -> Mesh:
     """``(data, model)`` mesh for the multi-chip CiM fabric (``fabric.shard``).
 
     The JAX package needs ``data * model`` jax devices for an executable
@@ -54,4 +74,4 @@ def make_chip_mesh(data: int = 1, model: int = 1) -> ChipMesh:
     """
     if data < 1 or model < 1:
         raise ValueError(f"mesh axes must be >= 1, got data={data}, model={model}")
-    return ChipMesh(data, model)
+    return Mesh((("data", data), ("model", model)))

@@ -1,10 +1,10 @@
-"""Divisibility-aware sharding rules (the planning half of
-``repro.launch.shardings``).
+"""Divisibility-aware sharding rules: param tree -> spec tree (counterpart
+of ``repro.launch.shardings``).
 
 Logical axes:
   * ``tp``   -> mesh axis ("model",)            tensor parallelism
-  * ``fsdp`` -> ("data",)                       parameter/optimizer sharding
-  * ``dp``   -> ("data",)                       batch sharding
+  * ``fsdp`` -> ("data",) or ("pod", "data")    parameter/optimizer sharding
+  * ``dp``   -> ("data",) or ("pod", "data")    batch sharding
 
 A dim that does not divide its assigned mesh axes falls back to replication
 for that dim — every fallback is recorded so a caller sees exactly what got
@@ -15,9 +15,11 @@ Fallback records are *scoped*, not global: wrap the spec-building calls in
 don't open a recorder get no bookkeeping and leak nothing.
 
 :func:`spec_for` returns a plain tuple, one entry per dim: a mesh axis name,
-a tuple of names, or ``None`` (replicated). The parameter, batch and cache
-shardings of training and mesh serving are not ported yet (ROADMAP.md, port
-queue A10).
+a tuple of names, or ``None`` (replicated); ``()`` replicates every dim. The
+port has no ``NamedSharding``: the tree functions return trees of such
+tuples, equal to ``tuple(NamedSharding.spec)`` of the JAX package's, and
+:func:`shard_shape` gives what ``NamedSharding.shard_shape`` gives. Trees
+are walked with ``repro_torch.tree`` (JAX's key paths).
 """
 
 from __future__ import annotations
@@ -25,12 +27,22 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import math
-from typing import Iterator, Optional, Sequence
+from typing import Any, Iterator, Optional, Sequence
 
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
+from repro_torch.tree import map_with_path, tree_map
 
-__all__ = ["logical_to_mesh", "spec_for", "axes_size", "record_fallbacks"]
+__all__ = [
+    "logical_to_mesh",
+    "spec_for",
+    "axes_size",
+    "param_shardings",
+    "batch_shardings",
+    "cache_shardings",
+    "shard_shape",
+    "record_fallbacks",
+]
 
 # Stack of active fallback recorders (innermost last). A ContextVar keeps
 # concurrent threads / async tasks from seeing each other's records.
@@ -76,10 +88,10 @@ def _record_fallback(msg: str) -> None:
 
 
 def logical_to_mesh(mesh) -> dict:
-    """Logical axis -> mesh axes. A chip mesh has no ``pod`` axis, so the
-    JAX package's multi-pod branch (``dp`` -> ``("pod", "data")``) is not
-    ported."""
-    return {"tp": ("model",), "fsdp": ("data",), "dp": ("data",)}
+    """Logical axis -> mesh axes; a mesh with a ``pod`` axis shards data and
+    parameters over ``("pod", "data")``."""
+    dp = ("pod", "data") if "pod" in mesh.axis_names else ("data",)
+    return {"tp": ("model",), "fsdp": dp, "dp": dp}
 
 
 def axes_size(mesh, axes: tuple) -> int:
@@ -112,3 +124,176 @@ def spec_for(mesh, shape: Sequence[int], logical: Sequence[Optional[str]], label
                 f"{label}: dim {i} ({dim}) not divisible by {ax}{mesh_axes} -> replicated"
             )
     return tuple(entries)
+
+
+def shard_shape(mesh, shape: Sequence[int], spec: tuple) -> tuple:
+    """The shape of one device's shard: each dim divided by the product of
+    its mesh axes (``NamedSharding.shard_shape``).
+
+    Example::
+
+        >>> from repro_torch.launch.mesh import make_chip_mesh
+        >>> shard_shape(make_chip_mesh(2, 4), (8, 6, 3), ("model", "data"))
+        (2, 3, 3)
+    """
+    out = []
+    for i, dim in enumerate(shape):
+        ax = spec[i] if i < len(spec) else None
+        if ax is None:
+            out.append(dim)
+            continue
+        size = axes_size(mesh, ax if isinstance(ax, tuple) else (ax,))
+        if dim % size:
+            raise ValueError(f"dim {i} ({dim}) of {tuple(shape)} does not divide over {ax} ({size})")
+        out.append(dim // size)
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# Parameter rules (matched by leaf path suffix)
+# ---------------------------------------------------------------------------
+
+# name -> logical axes per trailing dim (leading stacked-L dims get None)
+_PARAM_RULES: dict[str, tuple] = {
+    # embeddings
+    "tok": ("tp", "fsdp"),
+    "unembed": ("fsdp", "tp"),
+    # attention (flattened head dims shard over tp when divisible)
+    "wq": ("fsdp", "tp"),
+    "wk": ("fsdp", "tp"),
+    "wv": ("fsdp", "tp"),
+    "wo": ("tp", "fsdp"),
+    "bq": ("tp",),
+    "bk": ("tp",),
+    "bv": ("tp",),
+    # dense mlp
+    "w_gate": ("fsdp", "tp"),
+    "w_up": ("fsdp", "tp"),
+    "w_down": ("tp", "fsdp"),
+    # moe (expert dim over tp = expert parallelism)
+    "router": ("fsdp", None),
+    "moe/w_gate": ("tp", "fsdp", None),
+    "moe/w_up": ("tp", "fsdp", None),
+    "moe/w_down": ("tp", None, "fsdp"),
+    # mamba2 (head-aligned dims over tp; guarded by head divisibility)
+    "in_z": ("fsdp", "tp"),
+    "in_x": ("fsdp", "tp"),
+    "in_b": ("fsdp", None),
+    "in_c": ("fsdp", None),
+    "in_dt": ("fsdp", "tp"),
+    "conv_x": (None, "tp"),
+    "conv_b": (None, None),
+    "conv_c": (None, None),
+    "conv_x_bias": ("tp",),
+    "conv_b_bias": (None,),
+    "conv_c_bias": (None,),
+    "A_log": ("tp",),
+    "D": ("tp",),
+    "dt_bias": ("tp",),
+    "norm": ("tp",),
+    "out_proj": ("tp", "fsdp"),
+    # norms
+    "ln": (None,),
+    "ln1": (None,),
+    "ln2": (None,),
+    "ln_f": (None,),
+    "mamba_ln": (None,),
+}
+
+_MAMBA_NAMES = {"in_z", "in_x", "in_dt", "conv_x", "conv_x_bias", "A_log", "D", "dt_bias", "norm", "out_proj"}
+
+
+def _rule_for(joined: str) -> Optional[tuple]:
+    """The rule of the longest key that ends the leaf's joined path (so
+    ``moe/*`` wins over the plain names)."""
+    best = None
+    for key, rule in _PARAM_RULES.items():
+        if joined.endswith(key):
+            if best is None or len(key) > len(best[0]):
+                best = (key, rule)
+    return best[1] if best else None
+
+
+def _mamba_heads_shardable(cfg, mesh) -> bool:
+    tp = axes_size(mesh, ("model",))
+    return bool(cfg.ssm_state) and cfg.ssm_heads % tp == 0
+
+
+def param_shardings(mesh, params_shape: Any, cfg) -> Any:
+    """Map a tree of parameter stand-ins (anything with ``.shape``) to
+    specs."""
+    mamba_tp = _mamba_heads_shardable(cfg, mesh)
+
+    def one(joined, leaf):
+        rule = _rule_for(joined)
+        if rule is None:
+            return ()
+        # mamba leaves fall back to fsdp-only sharding when heads don't divide
+        if joined.rsplit("/", 1)[-1] in _MAMBA_NAMES and "mamba" in joined and not mamba_tp:
+            rule = tuple("fsdp" if ax == "fsdp" else None for ax in rule)
+        logical = (None,) * (len(leaf.shape) - len(rule)) + rule
+        return spec_for(mesh, leaf.shape, logical, label=joined)
+
+    return map_with_path(one, params_shape)
+
+
+# ---------------------------------------------------------------------------
+# Activations / inputs / caches
+# ---------------------------------------------------------------------------
+
+
+def batch_shardings(mesh, batch_shape: Any) -> Any:
+    """Token/label/embedding batches: batch dim over dp, rest replicated."""
+
+    def one(leaf):
+        logical = ("dp",) + (None,) * (len(leaf.shape) - 1)
+        return spec_for(mesh, leaf.shape, logical, label="batch")
+
+    return tree_map(one, batch_shape)
+
+
+def cache_shardings(mesh, cache_shape: Any, cfg) -> Any:
+    """KV / SSM cache specs for serve steps.
+
+    KV cache leaves are (L, B, S, KV, hd): batch over dp when divisible;
+    kv-heads over tp when divisible, otherwise the sequence dim goes over tp.
+    Mamba state (L, B, H, P, N): heads over tp.
+    """
+    l2m = logical_to_mesh(mesh)
+    dp_size = axes_size(mesh, l2m["dp"])
+    tp_size = axes_size(mesh, l2m["tp"])
+
+    def one(keys, leaf):
+        shape = leaf.shape
+        if keys.endswith("pos"):
+            return ()
+        if "conv" in keys:  # (L, B, W-1, C)
+            logical = (None, "dp" if shape[1] % dp_size == 0 else None, None, None)
+            return spec_for(mesh, shape, logical, label=keys)
+        if keys.endswith("ssm"):  # (L, B, H, P, N)
+            logical = (
+                None,
+                "dp" if shape[1] % dp_size == 0 else None,
+                "tp" if shape[2] % tp_size == 0 else None,
+                None,
+                None,
+            )
+            return spec_for(mesh, shape, logical, label=keys)
+        if len(shape) == 5:  # attn k/v (L, B, S, KV, hd)
+            b_ok = shape[1] % dp_size == 0
+            kv_ok = shape[3] % tp_size == 0
+            logical = (
+                None,
+                "dp" if b_ok else None,
+                None if kv_ok else "tp",
+                "tp" if kv_ok else None,
+                None,
+            )
+            if not b_ok and shape[2] % dp_size == 0 and kv_ok:
+                # batch=1 long-context: spread the sequence over dp instead
+                logical = (None, None, "dp", "tp", None)
+            return spec_for(mesh, shape, logical, label=keys)
+        return ()
+
+    return map_with_path(one, cache_shape)
+

@@ -292,8 +292,12 @@ def test_cim_matmul_exact_and_unported_modes():
     y_j, s_j = jcl.cim_matmul(jnp.asarray(x.numpy()), jnp.asarray(w.numpy()), jcl.CiMConfig(**cfg), return_stats=True)
     np.testing.assert_array_equal(y_t.numpy(), np.asarray(y_j))
     assert (int(s_t.conversions), int(s_t.comparisons)) == (int(s_j.conversions), int(s_j.comparisons))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcl.cim_matmul(x, w, tcl.CiMConfig(mode="int8_dot"))
+    # int8_dot is ported: equal to the JAX package's (run eagerly), stats zeros
+    cfg = dict(mode="int8_dot", ste=False)
+    y_t, s_t = tcl.cim_matmul(x, w, tcl.CiMConfig(**cfg), return_stats=True)
+    y_j = jcl.cim_matmul(jnp.asarray(x.numpy()), jnp.asarray(w.numpy()), jcl.CiMConfig(**cfg))
+    np.testing.assert_array_equal(y_t.numpy(), np.asarray(y_j))
+    assert (int(s_t.conversions), int(s_t.comparisons)) == (0, 0)
     # an ADC noise key draws what the JAX package draws (bitplane) or is
     # ignored (fake_quant), as in the JAX package
     noisy = dict(cfg, comparator_sigma=0.02, ref_mismatch_sigma=0.01)
