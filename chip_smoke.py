@@ -27,7 +27,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    chip geometry; K4 runs 2-D tiles and flat lengths that are not a multiple
    of 4 from starts 4, 8 and 12 bytes past a 16-byte boundary. K2 also
    runs the MoE and hybrid serves' prefill shapes (hd 128 with GQA 8, hd
-   112). Each
+   112), and is timed at all three families' served prefill shapes. Each
    kernel's median device time (launches queued behind a device sleep, so
    the host's launch rate is not timed), its plain version's time, its
    bound at H100 peaks (for K3 the function's, and the bound of the
@@ -171,8 +171,20 @@ Phases, in order; any failure raises and the script exits non-zero:
     100 MHz by > 0.1); the same params on the CPU give the card's accuracy
     noiseless (512 images) and at 10 MHz (64 images), the largest logit
     difference printed;
-24. ``[k1-served]``: K1 against its plain version (``torch.equal``) at
-    every (M, K, N) that phases 4, 13-21, 22 and 23 gave it (the training
+24. ``[example]``: the walkthroughs of ``repro_torch.examples`` on the
+    card: ``fabric_map`` (main and ``--graph``, its own asserts);
+    ``quickstart`` and ``cim_design_space`` at the JAX scripts' sizes (5
+    epochs; 1024 images at 10 MHz, 512 noiseless; every accuracy in [0, 1],
+    float above 0.9, no kernel launched); ``serve_lm`` exact and ``--cim``
+    (4 layers, d 128, batch 4, prompt 32, 24 tokens; with ``--cim`` K1
+    exactly 672 launches at rows 64 with an 8-bit ADC, recorded for phase
+    25; tokens in range); ``train_lm``'s own config (6.8M parameters) for
+    its 200 steps in a fresh checkpoint directory under ``build/``, removed
+    after (finite losses, the mean of the last 10 more than 0.5 below the
+    mean of the first 10, no restart); each script's host seconds
+    (``[time]``);
+25. ``[k1-served]``: K1 against its plain version (``torch.equal``) at
+    every (M, K, N) that phases 4, 13-21, 22, 23 and 24 gave it (the training
     shapes M 4096 and the QAT M 128 among them), recorded as they ran:
     each linear at its full M (prefill batch x prompt, decode batch, an
     expert's capacity, a chip's block), on random int8 operands; the plain
@@ -180,19 +192,20 @@ Phases, in order; any failure raises and the script exits non-zero:
     The shapes named for the new families (N 24, K 7168, expert M 8 and
     80), for the mesh (a 2x2 chip's M 512 K 288, the 1x4 unembed's K 144
     N 49152) and for the graph (a 1x3 chip's M 256 K 192 N 576, the
-    qwen3-moe router's K 512 N 128 on 1x4) and for training (M 4096 K 576
-    N 1536; the MLP's M 128 K 256 N 128) must be among them;
-25. ``[agree-moe]`` (both ``moe_impl``), ``[agree-mamba]``,
+    qwen3-moe router's K 512 N 128 on 1x4), for training (M 4096 K 576
+    N 1536; the MLP's M 128 K 256 N 128) and for ``serve_lm --cim`` (rows
+    64, 8-bit ADC, M 128 K 384 N 128) must be among them;
+26. ``[agree-moe]`` (both ``moe_impl``), ``[agree-mamba]``,
     ``[agree-hybrid]``: phase 6 on the reduced float32 configs, with the
     routed experts compared first (a differing choice is printed as a
     routing flip with its probability margin);
-26. ``[agree-train]``: one training step of each reduced float32 family
+27. ``[agree-train]``: one training step of each reduced float32 family
     (smollm-135m with fake_quant + STE, qwen3-moe with both ``moe_impl``s,
     mamba2-130m, zamba2-7b), card against CPU on the same weights and
     batch: the loss within 1e-3 of itself, every gradient leaf within 1e-3
     of its max, the AdamW update on the same gradients within 1e-6 of
     max|p|;
-27. ``[dryrun]``: ``hw.HBM_BYTES`` against the card's memory; the
+28. ``[dryrun]``: ``hw.HBM_BYTES`` against the card's memory; the
     ``[train]`` cell planned on 1x1 (``launch.steps.build_cell``) and its
     step counted by ``roofline.op_stats`` on fake CPU tensors and on the card
     with real tensors: dot FLOPs and K1's counted work equal, K1's launches
@@ -205,18 +218,18 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``launch.dryrun.run_cell`` and hillclimb's
     ``C_commandr_decode/opt_int8_weights`` on fake tensors (host seconds
     each; records under ``build/dryrun/``);
-28. ``[int8]``: ``cim_matmul(mode="int8_dot")`` on the card bit for bit
+29. ``[int8]``: ``cim_matmul(mode="int8_dot")`` on the card bit for bit
     equal to the CPU at the 7 linears of a smollm-135m layer, M 1024 and M 4
     (the padded path); ``[serve-int8]``: smollm-135m with ``int8_dot`` and
     the int8 KV cache, flash prefill, batch 4, prompt 256, 16 tokens (K1 0,
     K2 30); ``[agree-int8]``: phase 6 with ``int8_dot`` and the int8 KV
     cache;
-29. ``[example]``: ``repro_torch.examples.fabric_map`` (main and
-    ``--graph``) on the card, with its own asserts;
 30. the host seconds each group of phases took (``[time]``), one JSON line
     of every kernel with its launches (from phase 4; per path in
-    ``launches_by_path``, ``train``, ``mnist-qat``, ``dryrun train step``
-    and ``serve-int8`` among them), times and bound, the card's line again,
+    ``launches_by_path``, ``train``, ``mnist-qat``, ``dryrun train step``,
+    ``serve-int8`` and ``example serve_lm --cim`` among them), times and
+    bound (K2's also at the qwen3-moe and zamba2-7b prefill shapes, under
+    ``served_shapes``), the card's line again,
     and the final ``{"ok": true, ...}`` line.
 
 Every number printed stands after the card's name and power limit (phase 1,
@@ -458,6 +471,8 @@ def k1_served_phase(torch, cmm, shapes: dict) -> float:
     operands. The plain version runs in row blocks whose (rows, T, N)
     partial dots stay under 1 GiB: rows are independent at a fixed step.
     Returns the largest |kernel - plain|."""
+    from repro_torch.kernels.ref import fake_quant_step
+
     gen = torch.Generator(device="cuda").manual_seed(11)
     max_err = 0.0
     for (m, k, n, rows, step), paths in sorted(shapes.items()):
@@ -482,7 +497,9 @@ def k1_served_phase(torch, cmm, shapes: dict) -> float:
              "expert M 80": any(m == 80 for m, _, _ in served), "expert M 8": any(m == 8 for m, _, _ in served),
              "shard M 512 K 288": (512, 288, 576) in served, "program K 144 N 49152": (4, 144, 49152) in served,
              "graph 1x3 M 256 K 192": (256, 192, 576) in served, "graph router K 512 N 128": (256, 512, 128) in served,
-             "train M 4096 K 576 N 1536": (4096, 576, 1536) in served, "mnist M 128 K 256 N 128": (128, 256, 128) in served}
+             "train M 4096 K 576 N 1536": (4096, 576, 1536) in served, "mnist M 128 K 256 N 128": (128, 256, 128) in served,
+             "serve_lm --cim rows 64 adc 8 M 128 K 384 N 128": (128, 384, 128, 64, fake_quant_step(64, 8, 8, 8, True, True))
+             in shapes}
     if not all(named.values()):
         raise AssertionError(f"the serve paths gave K1 none of {[s for s, ok in named.items() if not ok]}")
     print(f"[k1-served] {len(shapes)} served shapes, among them {', '.join(named)}: all bit-exact "
@@ -548,17 +565,22 @@ def kernel_phase_k2(torch, fa, ref):
             F.scaled_dot_product_attention(qx, kx, vx, is_causal=True, scale=1.0, enable_gqa=True)
             return lambda: F.scaled_dot_product_attention(qx, kx, vx, is_causal=True, scale=1.0, enable_gqa=True)
         except TypeError:  # a torch without enable_gqa: expand the KV heads outside the timing
-            k_rep, v_rep = (t.repeat_interleave(h // kv, dim=1) for t in (kx, vx))
+            k_rep, v_rep = (t.repeat_interleave(qx.shape[1] // kx.shape[1], dim=1) for t in (kx, vx))
             return lambda: F.scaled_dot_product_attention(qx, k_rep, v_rep, is_causal=True, scale=1.0)
 
-    run = lambda: fa.flash_attention(q_main, k_main, v_main, sm_scale=1.0)
-    plain = lambda: fa.flash_attention_plain(q_main, k_main, v_main, sm_scale=1.0)
-    lib_bf16 = sdpa(q_main.to(bf16), k_main, v_main)
-    lib_f32 = sdpa(q_main, k_main.float(), v_main.float())  # the same function: k/v upcast outside the timing
-    pairs = b * h * s * (s + 1) // 2  # causal (query, key) pairs this input needs
-    n_bytes = q_main.numel() * 4 + 2 * k_main.numel() * 2 + q_main.numel() * 4
-    # float32 accuracy on the bf16 tensor cores: three passes for q.k^T, three for p.v
-    b_ms, b_by = bound(n_bytes, 6 * 2 * hd * pairs, BF16_FLOPS)
+    def timed(q, k, v):
+        """Kernel, plain version, bound and SDPA (float32 and bf16) at one serving shape."""
+        bb, hh, ss, d = q.shape
+        pairs = bb * hh * ss * (ss + 1) // 2  # causal (query, key) pairs this input needs
+        n_bytes = q.numel() * 4 + 2 * k.numel() * 2 + q.numel() * 4
+        # float32 accuracy on the bf16 tensor cores: three passes for q.k^T, three for p.v
+        b_ms, b_by = bound(n_bytes, 6 * 2 * d * pairs, BF16_FLOPS)
+        return {"ms": time_ms(lambda: fa.flash_attention(q, k, v, sm_scale=1.0)),
+                "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v, sm_scale=1.0)),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": time_ms(sdpa(q, k.float(), v.float())),  # the same function: k/v upcast outside
+                "library_bf16_ms": time_ms(sdpa(q.to(bf16), k, v))}
+
     entry = {
         "name": "flash_attention",
         "route": "cuda",
@@ -566,17 +588,19 @@ def kernel_phase_k2(torch, fa, ref):
         "replaces": "src/repro/kernels/flash_attention.py:33",
         "launches": None,
         "max_abs_err": max_err,
-        "ms": time_ms(run),
-        "plain_ms": time_ms(plain),
-        "bound_ms": b_ms,
-        "bound_by": b_by,
-        "library_ms": time_ms(lib_f32),
-        "library_bf16_ms": time_ms(lib_bf16),
+        **timed(q_main, k_main, v_main),
     }
-    print(f"[k2] serving shape B{b} H{h} KV{kv} S{s} hd{hd} (q f32, k/v bf16, {fa.kernel_variant(bf16)}): "
-          f"kernel {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
-          f"scaled_dot_product_attention float32 {entry['library_ms']:.4f} ms, "
-          f"bf16 {entry['library_bf16_ms']:.4f} ms")
+    # the other families' served prefill shapes: qwen3-moe (hd 128, GQA 8), zamba2-7b's shared
+    # block (hd 112, padded to 128 inside the kernel); q pre-scaled float32, k/v bf16, as served
+    entry["served_shapes"] = {}
+    for fam, (bb, hh, kk, ss, d) in (("qwen3-moe", (4, 32, 4, 256, 128)), ("zamba2-7b", (4, 32, 32, 512, 112))):
+        shape = f"{fam} B{bb} H{hh} KV{kk} S{ss} hd{d}"
+        entry["served_shapes"][shape] = timed(randn(bb, hh, ss, d) * d ** -0.5,
+                                              randn(bb, kk, ss, d, dt=bf16), randn(bb, kk, ss, d, dt=bf16))
+    for shape, t in (("smollm-135m B4 H9 KV3 S256 hd64", entry), *entry["served_shapes"].items()):
+        print(f"[k2] serving shape {shape} (q f32, k/v bf16, {fa.kernel_variant(bf16)}): "
+              f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms ({t['bound_by']}), "
+              f"scaled_dot_product_attention float32 {t['library_ms']:.4f} ms, bf16 {t['library_bf16_ms']:.4f} ms")
     return entry
 
 
@@ -2156,20 +2180,97 @@ def serve_int8_phase(torch, cmm, fa):
     return launches
 
 
-def example_phase(torch):
-    """``python -m repro_torch.examples.fabric_map`` and its ``--graph`` form
-    on the card (their own asserts; the check lines printed)."""
+# ``[example]``'s learning gate on train_lm's 200 steps: the mean of the last 10 losses
+# must fall below the mean of the first 10 by more than this. It is 20x the spread of
+# the first 10 (0.0222) and well below the measured fall (9.0639 -> 7.7050 on an
+# NVIDIA H100 80GB HBM3 at 700 W); 60 steps moved the loss by 0.0064 only.
+TRAIN_LM_MARGIN = 0.5
+
+
+def example_phase(torch, cmm, fa, aq, served: dict) -> dict:
+    """``repro_torch.examples`` on the card, each through its ``run`` at the
+    JAX script's sizes: ``fabric_map`` (main and ``--graph``, its own
+    asserts); ``quickstart`` and ``cim_design_space`` (every accuracy in
+    [0, 1], the float MLP's above 0.9; their bit-plane evaluation is plain
+    PyTorch, so no kernel launches); ``serve_lm`` exact (no launch) and
+    ``--cim`` (K1 exactly 4 layers x 7 linears x 24 forwards, K2 0; its K1
+    shapes, rows 64 with an 8-bit ADC, recorded in ``served`` for
+    ``[k1-served]``), tokens in range; ``train_lm`` (200 steps) in a fresh
+    checkpoint directory under ``build/``, removed after (finite losses,
+    the mean of the last 10 more than ``TRAIN_LM_MARGIN`` below the mean of
+    the first 10, no ``[ft] failure``: a restart on the card is a fault).
+    Every count is set to 0 just before a script and read just after. Each
+    script's lines are printed tagged ``[example]`` and its host seconds on
+    a ``[time]`` line. Returns each script's launches."""
     import io
+    import shutil
+    import tempfile
 
-    from repro_torch.examples import fabric_map
+    from repro_torch.examples import cim_design_space, fabric_map, quickstart, serve_lm, train_lm
 
-    for fn in (fabric_map.main, fabric_map.graph_demo):
+    took, launches = {}, {}
+
+    def echo(tag, fn, *args, keep=lambda line: True, **kw):
         buf = io.StringIO()
+        cmm.launches = fa.launches = cmm.bp_launches = aq.launches = 0
+        t0 = time.time()
         with contextlib.redirect_stdout(buf):
-            fn("cuda")
+            res = fn(*args, **kw)
+        torch.cuda.synchronize()
+        took[tag] = round(time.time() - t0, 1)
+        launches[tag] = {"cim_matmul_fq": cmm.launches, "flash_attention": fa.launches,
+                         "cim_matmul_bp": cmm.bp_launches, "adc_quant": aq.launches}
         for line in buf.getvalue().splitlines():
-            if line.startswith("[") or "checks passed" in line:
+            if keep(line):
                 print(f"[example] {line}")
+        return res, buf.getvalue()
+
+    def no_launch(tag):
+        if any(launches[tag].values()):
+            raise AssertionError(f"[example] {tag} launched {launches[tag]}, want no kernel")
+
+    checks = lambda line: line.startswith("[") or "checks passed" in line  # noqa: E731
+    echo("fabric_map", fabric_map.main, "cuda", keep=checks)
+    echo("fabric_map --graph", fabric_map.graph_demo, "cuda", keep=checks)
+    for tag, script in (("quickstart", quickstart), ("cim_design_space", cim_design_space)):
+        res, _ = echo(tag, script.run, device="cuda")
+        accs = [res["float_acc"], *res["acc"].values()]
+        if not (all(0.0 <= a <= 1.0 for a in accs) and res["float_acc"] > 0.9):
+            raise AssertionError(f"[example] {tag}: accuracies {accs}, want each in [0, 1] and float above 0.9")
+        no_launch(tag)
+    for cim in (False, True):
+        tag = "serve_lm --cim" if cim else "serve_lm"
+        cfg = serve_lm.example_config(cim)
+        with k1_recorder(cmm, served, f"example {tag}") if cim else contextlib.nullcontext():
+            out, _ = echo(tag, serve_lm.run, cim=cim, device="cuda")
+        gen = out["generated"]
+        if gen.shape != (4, 24) or gen.min() < 0 or gen.max() >= cfg.vocab:
+            raise AssertionError(f"[example] {tag}: generated tokens out of range or shape {gen.shape}")
+        want = {"cim_matmul_fq": cfg.n_layers * 7 * 24 if cim else 0, "flash_attention": 0,
+                "cim_matmul_bp": 0, "adc_quant": 0}
+        if launches[tag] != want:
+            raise AssertionError(f"[example] {tag}: launches {launches[tag]}, want {want}")
+        print(f"[example] {tag}: launches {launches[tag]}"
+              f"{' (= 4 layers x 7 linears x 24 forwards)' if cim else ''}")
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="example_ckpt_", dir=ROOT / "build")
+    try:
+        out, text = echo("train_lm", train_lm.run, ckpt_dir=ckpt_dir, device="cuda")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)  # the run's checkpoints, ~80 MB a step kept
+    losses = out["losses"]
+    first, last = statistics.mean(losses[:10]), statistics.mean(losses[-10:])
+    if "[ft] failure" in text or len(losses) != 200 or not all(math.isfinite(v) for v in losses) \
+            or not last < first - TRAIN_LM_MARGIN:
+        raise AssertionError(f"[example] train_lm: {len(losses)} losses, mean of the first 10 {first}, of the "
+                             f"last 10 {last} (margin {TRAIN_LM_MARGIN}), restarted: {'[ft] failure' in text}")
+    no_launch("train_lm")
+    print(f"[example] train_lm: 200 steps, mean loss of the first 10 {first:.4f} (spread "
+          f"{max(losses[:10]) - min(losses[:10]):.4f}), of the last 10 {last:.4f} (spread "
+          f"{max(losses[-10:]) - min(losses[-10:]):.4f}), gate: a fall of more than {TRAIN_LM_MARGIN}; "
+          f"no restart, no kernel launched")
+    print(f"[time] examples, host seconds by script: {took}")
+    return launches
 
 
 def _grads_close(tag, what, got: dict, want: dict, rel: float) -> float:
@@ -2388,6 +2489,8 @@ def main() -> int:
     with k1_recorder(cmm, served, "mnist-qat"):
         mnist_launches = mnist_phase(torch, cmm, fa)
     stamp("mnist")
+    example_launches = example_phase(torch, cmm, fa, aq, served)
+    stamp("example")
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_served_phase(torch, cmm, served))
     stamp("k1-served")
     for impl in ("dense", "scatter"):
@@ -2403,8 +2506,6 @@ def main() -> int:
     serve_int8_launches = serve_int8_phase(torch, cmm, fa)
     agreement_phase(torch, mode="int8_dot", tag="agree-int8", kv_quant_int8=True)
     stamp("int8, serve-int8, agree-int8")
-    example_phase(torch)
-    stamp("example")
     print(f"[time] host seconds by phase: {took}; {sum(took.values()):.1f} s in all")
     paths = {"serve": launches, "serve-moe dense": moe_launches["dense"],
              "serve-moe scatter": moe_launches["scatter"], "serve-mamba": mamba_launches,
@@ -2419,7 +2520,8 @@ def main() -> int:
              "autotune": {"cim_matmul_fq": autotune["launches"], "flash_attention": 0},
              **{f"serve-graph {tag}": counts for tag, counts in serve_graph_launches.items()},
              "train": train_launches, "mnist-qat": mnist_launches, "dryrun train step": dryrun_launches,
-             "serve-int8": serve_int8_launches}
+             "serve-int8": serve_int8_launches,
+             **{f"example {tag}": counts for tag, counts in example_launches.items()}}
     for entry, name in ((k1, "cim_matmul_fq"), (k2, "flash_attention")):
         entry["launches_by_path"] = {path: counts[name] for path, counts in paths.items()}
 

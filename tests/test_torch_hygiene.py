@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, reduced
+from repro_torch.examples import quickstart, serve_lm
 from repro_torch.kernels import adc_quant as aq
 from repro_torch.kernels import build
 from repro_torch.kernels import cim_matmul as cmm
@@ -50,6 +51,8 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.fabric, repro_torch.fabric.report\n"
         "import repro_torch.data, repro_torch.train, repro_torch.optim, repro_torch.optim.grad_compression\n"
         "import repro_torch.checkpoint, repro_torch.ft, repro_torch.launch.train, repro_torch.tree\n"
+        "import repro_torch.examples.quickstart, repro_torch.examples.serve_lm\n"
+        "import repro_torch.examples.train_lm, repro_torch.examples.cim_design_space\n"
         "print('imported')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -58,7 +61,7 @@ def test_port_imports_with_jax_blocked():
     assert out.stdout.strip() == "imported"
 
 
-def test_default_device_raises_without_cuda():
+def test_default_device_raises_without_cuda(capsys):
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA: the default device is usable")
     cfg = reduced(get_config("smollm-135m"))
@@ -66,6 +69,11 @@ def test_default_device_raises_without_cuda():
         build_model(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve_batch(cfg, ServeSettings(batch=1, prompt_len=4, gen_len=2))
+    # the walkthroughs refuse before any work: nothing trained, served or printed
+    for example in (quickstart, serve_lm):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            example.main([])
+    assert capsys.readouterr().out == ""
 
 
 def test_wrappers_never_fall_back_from_a_non_cpu_tensor():
