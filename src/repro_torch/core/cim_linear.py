@@ -119,13 +119,18 @@ def quantize_symmetric(
     return x_int, scale
 
 
+def _pad_k(v: torch.Tensor, rows: int, k_dim: int) -> torch.Tensor:
+    """``v`` with its reduction dim (-1 for an activation (M, K), 0 for a
+    weight (K, N)) zero-padded to a multiple of ``rows``."""
+    pad = (-v.shape[k_dim]) % rows
+    if not pad:
+        return v
+    return F.pad(v, (0, pad) if k_dim == -1 else (0, 0, 0, pad))
+
+
 def _pad_reduction(x_int, w_int, rows):
-    k = x_int.shape[-1]
-    pad = (-k) % rows
-    if pad:
-        x_int = F.pad(x_int, (0, pad))
-        w_int = F.pad(w_int, (0, 0, 0, pad))
-    return x_int, w_int, (k + pad) // rows
+    x_int, w_int = _pad_k(x_int, rows, -1), _pad_k(w_int, rows, 0)
+    return x_int, w_int, x_int.shape[-1] // rows
 
 
 def _bitplane_matmul(x_int, w_int, cfg: CiMConfig, key=None, row_offset=0, exact_comparisons: bool = False):
@@ -194,6 +199,32 @@ def _bitplane_matmul(x_int, w_int, cfg: CiMConfig, key=None, row_offset=0, exact
     return y_int, stats
 
 
+def _fq_operand(v_int: torch.Tensor, cfg: CiMConfig, k_dim: int) -> torch.Tensor:
+    """An integer-valued operand as the fake-quant product takes it: its
+    reduction dim ``k_dim`` (-1 for x, 0 for w) padded to whole tiles, and
+    int8 on CUDA, where the kernel takes int8 operands, so both widths must
+    be at most 8 bits."""
+    v_int = _pad_k(v_int, cfg.rows, k_dim)
+    if v_int.is_cuda:
+        if cfg.a_bits > 8 or cfg.w_bits > 8:
+            raise ValueError(
+                f"the CUDA fake-quant kernel takes int8 operands; "
+                f"a_bits={cfg.a_bits}, w_bits={cfg.w_bits} exceed 8"
+            )
+        v_int = v_int.to(torch.int8)
+    return v_int
+
+
+def _fq_product(x_c: torch.Tensor, w_c: torch.Tensor, cfg: CiMConfig):
+    """The fake-quant product of operands from :func:`_fq_operand`:
+    ``(y_int float32 (M, N), step)``."""
+    from repro_torch.kernels.cim_matmul import cim_matmul_fq
+    from repro_torch.kernels.ref import fake_quant_step
+
+    step = fake_quant_step(cfg.rows, cfg.adc_bits, cfg.a_bits, cfg.w_bits, cfg.a_signed, cfg.w_signed)
+    return cim_matmul_fq(x_c, w_c, rows=cfg.rows, step=step), step
+
+
 def _fake_quant_matmul(x_int, w_int, cfg: CiMConfig):
     """Integer per-tile partial sums + RMS-equivalent composite quantizer.
 
@@ -203,20 +234,7 @@ def _fake_quant_matmul(x_int, w_int, cfg: CiMConfig):
     go to the kernel as int8, so both widths must be at most 8 bits.
     Returns ``(y_int float32 (M, N), step)``.
     """
-    from repro_torch.kernels.cim_matmul import cim_matmul_fq
-    from repro_torch.kernels.ref import fake_quant_step
-
-    r = cfg.rows
-    x_int, w_int, _ = _pad_reduction(x_int, w_int, r)
-    step = fake_quant_step(r, cfg.adc_bits, cfg.a_bits, cfg.w_bits, cfg.a_signed, cfg.w_signed)
-    if x_int.is_cuda:
-        if cfg.a_bits > 8 or cfg.w_bits > 8:
-            raise ValueError(
-                f"the CUDA fake-quant kernel takes int8 operands; "
-                f"a_bits={cfg.a_bits}, w_bits={cfg.w_bits} exceed 8"
-            )
-        x_int, w_int = x_int.to(torch.int8), w_int.to(torch.int8)
-    return cim_matmul_fq(x_int, w_int, rows=r, step=step), step
+    return _fq_product(_fq_operand(x_int, cfg, -1), _fq_operand(w_int, cfg, 0), cfg)
 
 
 INT_MM_ROWS = 32  # the CUDA int8 product runs on a multiple of 32 rows

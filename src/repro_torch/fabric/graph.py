@@ -645,7 +645,7 @@ class GraphProgram:
         with obs_trace.span(
             "fabric.graph.forward", n_matmuls=self.n_layers,
             mesh=f"{self.chip_mesh.data}x{self.chip_mesh.model}", tokens=rows * x.shape[1],
-        ), obs_trace.annotate("fabric.graph.fused"):
+        ):
             y, conversions, comparisons = self._fused(key is not None)(x, *flat, count=return_stats)
         if real_rows is not None:
             y = y[:real_rows]

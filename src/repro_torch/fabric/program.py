@@ -416,7 +416,7 @@ class FabricProgram:
         with obs_trace.span(
             "fabric.program.forward", n_layers=self.n_layers,
             mesh=f"{self.chip_mesh.data}x{self.chip_mesh.model}", m=xm.shape[0],
-        ), obs_trace.annotate("fabric.program.fused"):
+        ):
             y, conversions, comparisons = self._fused(key is not None)(xm, *flat, count=return_stats)
         y = y.reshape(*batch_shape, self.placements[-1].n)
         if return_stats:

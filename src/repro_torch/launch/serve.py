@@ -324,9 +324,10 @@ def serve_batch(
         t0 = time.time()
         with obs_trace.span("serve.decode", batch=b, gen_len=st.gen_len):
             for i in range(st.gen_len - 1):
-                logits, cache = model.decode_step(params, next_tok, s + i, cache)
-                next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-                out_tokens.append(next_tok)
+                with obs_trace.span("serve.decode_step", step=i):
+                    logits, cache = model.decode_step(params, next_tok, s + i, cache)
+                    next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+                    out_tokens.append(next_tok)
             synchronize(device)
         t_decode = time.time() - t0
 

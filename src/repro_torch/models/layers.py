@@ -29,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.cim_linear import CiMConfig, cim_matmul
+from repro_torch.obs import trace as obs_trace
 
 _NEG = -1e30
 
@@ -430,7 +431,9 @@ def chunked_xent(
 
 
 def logits_step(p: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Decode-step logits (B, 1, V) in fp32, padded vocab masked to -1e9."""
-    w = unembed_weight(p, cfg)
-    logits = (h @ w.to(h.dtype)).float()
-    return logits + (_vocab_mask(cfg, h.device) - 1.0) * 1e9
+    """Decode-step logits (B, 1, V) in fp32, padded vocab masked to -1e9
+    (a ``layer.unembed`` span under ``repro_torch.obs`` tracing)."""
+    with obs_trace.span("layer.unembed"):
+        w = unembed_weight(p, cfg)
+        logits = (h @ w.to(h.dtype)).float()
+        return logits + (_vocab_mask(cfg, h.device) - 1.0) * 1e9

@@ -19,6 +19,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2, transformer, zamba2
+from repro_torch.obs import trace as obs_trace
 
 __all__ = ["Model", "build_model"]
 
@@ -74,9 +75,10 @@ def _mamba_lm_forward(p, x_in, cfg: ModelConfig, cache, decode=False):
         x = L.embed(p["embed"], x_in[:, None], cfg)
     step = mamba2.mamba_decode_step if decode else mamba2.mamba_forward
     for i in range(cfg.n_layers):
-        hn = L.rms_norm(x, p["ln"][i], cfg.norm_eps)
-        y, _ = step(L.layer_slice(p["mamba"], i), hn, cfg, L.layer_slice(cache, i))
-        x = x + y
+        with obs_trace.span("layer.mamba2", layer=i):
+            hn = L.rms_norm(x, p["ln"][i], cfg.norm_eps)
+            y, _ = step(L.layer_slice(p["mamba"], i), hn, cfg, L.layer_slice(cache, i))
+            x = x + y
     return L.rms_norm(x, p["ln_f"], cfg.norm_eps)
 
 

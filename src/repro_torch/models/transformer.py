@@ -16,6 +16,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.moe import init_moe, moe_ffn, moe_ffn_dense
+from repro_torch.obs import trace as obs_trace
 
 __all__ = ["init_transformer", "transformer_forward", "transformer_prefill", "transformer_decode"]
 
@@ -44,6 +45,10 @@ def _ffn(p: dict, i: int, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         return L.mlp(L.layer_slice(p["mlp"], i), x, cfg)
     ffn = moe_ffn_dense if cfg.moe_impl == "dense" else moe_ffn
     return ffn(L.layer_slice(p["moe"], i), x, cfg)[0]
+
+
+def _ffn_span(cfg: ModelConfig) -> str:
+    return "layer.moe" if cfg.n_experts else "layer.mlp"
 
 
 def _block_train(x, lp, cfg: ModelConfig, positions):
@@ -84,12 +89,15 @@ def transformer_prefill(p: dict, x_in: torch.Tensor, cfg: ModelConfig, cache: di
     """Prefill: fills the per-layer KV cache, returns (h, cache)."""
     x = L.embed(p["embed"], x_in, cfg)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    ffn = _ffn_span(cfg)
     for i in range(cfg.n_layers):
-        hn = L.rms_norm(x, p["ln1"][i], cfg.norm_eps)
-        h, _ = L.attention(L.layer_slice(p["attn"], i), hn, cfg, positions, cache=L.layer_slice(cache, i))
-        x = x + h
-        hn = L.rms_norm(x, p["ln2"][i], cfg.norm_eps)
-        x = x + _ffn(p, i, hn, cfg)
+        with obs_trace.span("layer.attention", layer=i):
+            hn = L.rms_norm(x, p["ln1"][i], cfg.norm_eps)
+            h, _ = L.attention(L.layer_slice(p["attn"], i), hn, cfg, positions, cache=L.layer_slice(cache, i))
+            x = x + h
+        with obs_trace.span(ffn, layer=i):
+            hn = L.rms_norm(x, p["ln2"][i], cfg.norm_eps)
+            x = x + _ffn(p, i, hn, cfg)
     return L.rms_norm(x, p["ln_f"], cfg.norm_eps), cache
 
 
@@ -99,11 +107,14 @@ def transformer_decode(p: dict, token: torch.Tensor, cfg: ModelConfig, pos: int,
         x = token[:, None, :].to(L.cdtype(cfg))
     else:
         x = L.embed(p["embed"], token[:, None], cfg)
+    ffn = _ffn_span(cfg)
     for i in range(cfg.n_layers):
-        hn = L.rms_norm(x, p["ln1"][i], cfg.norm_eps)
-        h, _ = L.decode_attention(L.layer_slice(p["attn"], i), hn, cfg, pos, L.layer_slice(cache, i))
-        x = x + h
-        hn = L.rms_norm(x, p["ln2"][i], cfg.norm_eps)
-        x = x + _ffn(p, i, hn, cfg)
+        with obs_trace.span("layer.attention", layer=i):
+            hn = L.rms_norm(x, p["ln1"][i], cfg.norm_eps)
+            h, _ = L.decode_attention(L.layer_slice(p["attn"], i), hn, cfg, pos, L.layer_slice(cache, i))
+            x = x + h
+        with obs_trace.span(ffn, layer=i):
+            hn = L.rms_norm(x, p["ln2"][i], cfg.norm_eps)
+            x = x + _ffn(p, i, hn, cfg)
     h = L.rms_norm(x, p["ln_f"], cfg.norm_eps)
     return L.logits_step(p["embed"], h, cfg), cache

@@ -10,6 +10,11 @@ Layers are walked with Python loops where the JAX package uses ``lax.scan``;
 states and caches are filled in place. The training forward recomputes as
 the JAX package's does with ``cfg.remat != "none"``: each group (its Mamba2
 layers and the shared block) as one unit, and each tail layer alone.
+Under ``repro_torch.obs`` tracing, prefill and decode record a
+``layer.mamba2`` span per Mamba2 layer (``layer`` its index) and, per
+application of the shared block, a ``layer.attention`` and a ``layer.mlp``
+span (``layer`` the application's index), each with its norm and residual
+add.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.mamba2 import init_mamba, make_mamba_state, mamba_decode_step, mamba_forward
+from repro_torch.obs import trace as obs_trace
 
 __all__ = ["init_zamba", "zamba_forward", "zamba_prefill", "zamba_decode", "make_zamba_cache"]
 
@@ -60,25 +66,29 @@ def _schedule(cfg: ModelConfig):
         yield "mamba", i
 
 
-def _shared_block(x, shared, cfg, positions, cache=None, pos=None, decode=False):
-    hn = L.rms_norm(x, shared["ln1"], cfg.norm_eps)
-    if decode:
-        h, _ = L.decode_attention(shared["attn"], hn, cfg, pos, cache)
-    else:
-        h, _ = L.attention(shared["attn"], hn, cfg, positions, cache=cache)
-    x = x + h
-    return x + L.mlp(shared["mlp"], L.rms_norm(x, shared["ln2"], cfg.norm_eps), cfg)
+def _shared_block(x, shared, cfg, positions, cache=None, pos=None, decode=False, app=None):
+    """The shared block's ``app``-th application."""
+    with obs_trace.span("layer.attention", layer=app):
+        hn = L.rms_norm(x, shared["ln1"], cfg.norm_eps)
+        if decode:
+            h, _ = L.decode_attention(shared["attn"], hn, cfg, pos, cache)
+        else:
+            h, _ = L.attention(shared["attn"], hn, cfg, positions, cache=cache)
+        x = x + h
+    with obs_trace.span("layer.mlp", layer=app):
+        return x + L.mlp(shared["mlp"], L.rms_norm(x, shared["ln2"], cfg.norm_eps), cfg)
 
 
 def _walk(p: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict, positions=None, pos=None, decode=False):
+    step = mamba_decode_step if decode else mamba_forward
     for kind, i in _schedule(cfg):
         if kind == "shared":
-            x = _shared_block(x, p["shared"], cfg, positions, L.layer_slice(cache["attn"], i), pos, decode)
+            x = _shared_block(x, p["shared"], cfg, positions, L.layer_slice(cache["attn"], i), pos, decode, app=i)
             continue
-        hn = L.rms_norm(x, p["mamba_ln"][i], cfg.norm_eps)
-        step = mamba_decode_step if decode else mamba_forward
-        y, _ = step(L.layer_slice(p["mamba"], i), hn, cfg, L.layer_slice(cache["mamba"], i))
-        x = x + y
+        with obs_trace.span("layer.mamba2", layer=i):
+            hn = L.rms_norm(x, p["mamba_ln"][i], cfg.norm_eps)
+            y, _ = step(L.layer_slice(p["mamba"], i), hn, cfg, L.layer_slice(cache["mamba"], i))
+            x = x + y
     return L.rms_norm(x, p["ln_f"], cfg.norm_eps)
 
 
@@ -95,7 +105,7 @@ def zamba_forward(p: dict, x_in: torch.Tensor, cfg: ModelConfig):
     def group(x, j):
         for i in range(j * period, (j + 1) * period):
             x = inner(x, i)
-        return _shared_block(x, p["shared"], cfg, positions)
+        return _shared_block(x, p["shared"], cfg, positions, app=j)
 
     remat = cfg.remat != "none"
     for j in range(g):

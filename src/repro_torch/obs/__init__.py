@@ -27,7 +27,7 @@ from repro_torch.obs.metrics import (
     set_gauge,
 )
 from repro_torch.obs.sinks import JsonlSink, read_jsonl, write_prometheus
-from repro_torch.obs.trace import Tracer, annotate, enabled, event, span, tracing
+from repro_torch.obs.trace import Tracer, enabled, event, now_ns, span, tracing
 
 __all__ = [
     "Tracer",
@@ -35,7 +35,7 @@ __all__ = [
     "span",
     "event",
     "enabled",
-    "annotate",
+    "now_ns",
     "Counter",
     "Gauge",
     "Histogram",

@@ -8,27 +8,47 @@ feed enclosing tracers), and code outside any block pays near-zero cost —
 before building a record.
 
 Instrumentation is strictly host-side: spans wall-clock Python-level work and
-never touch device tensors. The only PyTorch integration is :func:`annotate`,
-which wraps a region in ``torch.profiler.record_function`` (a profiler
-timeline label) when tracing is enabled.
+never touch device tensors. Each span record carries its ``id``, the ``id``
+of the span it was opened in (``parent``), and ``start_ns`` / ``end_ns`` on
+the clock of :func:`now_ns`, the clock ``torch.profiler`` stamps its events
+with, so a device trace and the spans that launched its work line up with
+no offset.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import itertools
 import time
 from typing import Iterator, List, Optional
 
 from repro_torch.obs.sinks import JsonlSink
 
-__all__ = ["Tracer", "tracing", "span", "event", "enabled", "annotate"]
+__all__ = ["Tracer", "tracing", "span", "event", "enabled", "now_ns"]
 
 # Stack of active tracers (innermost last). A ContextVar keeps concurrent
 # threads / async serving tasks from seeing each other's spans.
 _TRACERS: contextvars.ContextVar[tuple] = contextvars.ContextVar(
     "obs_tracers", default=()
 )
+# The innermost open recorded span of this context (None outside any): the
+# parent of the next span opened.
+_OPEN: contextvars.ContextVar = contextvars.ContextVar("obs_open_span", default=None)
+_IDS = itertools.count(1)
+
+
+def now_ns() -> int:
+    """The spans' clock: the host's real-time clock in integer nanoseconds
+    (``time.time_ns``).
+
+    ``torch.profiler`` stamps its host and device events on this clock (Unix
+    time in ns), so a span's ``start_ns`` / ``end_ns`` compare directly with
+    the timestamps of the work launched inside it. ``time.perf_counter``
+    would need an offset to the profiler's clock, read at one instant and
+    drifting after it.
+    """
+    return time.time_ns()
 
 
 class Tracer:
@@ -122,33 +142,52 @@ _NULL_SPAN = _NullSpan()
 
 
 class _Span:
-    __slots__ = ("name", "attrs", "_tracers", "_t0")
+    __slots__ = ("name", "attrs", "id", "_tracers", "_parent", "_token", "_start", "_t0")
 
     def __init__(self, name: str, attrs: dict, tracers: tuple):
         self.name = name
         self.attrs = attrs
+        self.id = next(_IDS)
         self._tracers = tracers
+        self._parent = None
+        self._token = None
+        self._start = 0
         self._t0 = 0.0
 
     def __enter__(self):
+        self._parent = _OPEN.get()
+        self._token = _OPEN.set(self)
         self._t0 = time.perf_counter()
+        self._start = now_ns()
         return self
 
     def set(self, **attrs) -> None:
         """Attach attributes discovered mid-span (e.g. a resolved backend)."""
         self.attrs.update(attrs)
 
+    def _parent_in(self, tr: Tracer):
+        """The id of the innermost enclosing span that ``tr`` records, or None."""
+        p = self._parent
+        while p is not None and not any(t is tr for t in p._tracers):
+            p = p._parent
+        return None if p is None else p.id
+
     def __exit__(self, *exc):
+        end = now_ns()
         t1 = time.perf_counter()
-        record = {
-            "kind": "span",
-            "name": self.name,
-            "t_s": self._t0,
-            "duration_s": t1 - self._t0,
-            "attrs": self.attrs,
-        }
+        _OPEN.reset(self._token)
         for tr in self._tracers:
-            tr._emit(record)
+            tr._emit({
+                "kind": "span",
+                "name": self.name,
+                "id": self.id,
+                "parent": self._parent_in(tr),
+                "start_ns": self._start,
+                "end_ns": end,
+                "t_s": self._t0,
+                "duration_s": t1 - self._t0,
+                "attrs": self.attrs,
+            })
         return False
 
 
@@ -157,8 +196,12 @@ def span(name: str, **attrs):
 
     With no active tracer this returns one shared no-op singleton (zero
     allocation, the documented disabled-path cost); with tracers active
-    it records ``{name, t_s, duration_s, attrs}`` to every one of them
-    on exit.
+    it records ``{name, id, parent, start_ns, end_ns, t_s, duration_s,
+    attrs}`` to every one of them on exit. ``parent`` is the ``id`` of the
+    innermost span open around it that the same tracer records (None at
+    the top); ``start_ns`` / ``end_ns`` are on :func:`now_ns`'s clock;
+    ``t_s`` and ``duration_s`` are ``time.perf_counter`` seconds, as the
+    JSONL log's readers take them.
 
     Example::
 
@@ -168,6 +211,13 @@ def span(name: str, **attrs):
         ...         sp.set(tiles=4)
         >>> tr.spans[0]["attrs"]
         {'layer': 'q_proj', 'tiles': 4}
+        >>> with tracing() as tr:
+        ...     with span("outer"):
+        ...         with span("inner"):
+        ...             pass
+        >>> inner, outer = tr.spans
+        >>> inner["parent"] == outer["id"], outer["parent"]
+        (True, None)
     """
     tracers = _TRACERS.get()
     if not tracers:
@@ -200,19 +250,3 @@ def event(name: str, **attrs) -> None:
     for tr in tracers:
         tr._emit(record)
 
-
-def annotate(name: str):
-    """A ``torch.profiler.record_function`` for ``name`` when tracing is
-    enabled, else a null context — a label on the profiler timeline.
-
-    Example::
-
-        >>> from repro_torch.obs import annotate
-        >>> with annotate("serve.prefill"):
-        ...     pass  # launch the prefill here
-    """
-    if not _TRACERS.get():
-        return contextlib.nullcontext()
-    import torch
-
-    return torch.profiler.record_function(name)

@@ -119,7 +119,8 @@ def test_serve_cli_moe_fabric_on_cpu(capsys):
 def test_serve_cli_obs_flags_match_jax(tmp_path, monkeypatch, capsys):
     """``--obs-log`` and ``--obs-metrics-out`` on a reduced fabric serve: the
     Prometheus exposition holds the JAX CLI's metric names and the JSONL log
-    its event and span names; ``--obs-metrics`` prints the exposition."""
+    its event and span names, and the port's spans inside the serve path;
+    ``--obs-metrics`` prints the exposition."""
     import json
 
     argv = ["--arch", "smollm-135m", "--reduced", "--batch", "2", "--prompt-len", "8", "--gen-len", "3",
@@ -139,7 +140,10 @@ def test_serve_cli_obs_flags_match_jax(tmp_path, monkeypatch, capsys):
         names = sorted({line.split()[2] for line in prom.read_text().splitlines() if line.startswith("# TYPE")})
         events = sorted({json.loads(line)["name"] for line in log.read_text().splitlines()})
         runs[tag] = names, events
-    assert runs["port"] == runs["jax"]
+    # the port's spans inside the serve path, which the JAX package does not record, come on top
+    port_only = {"serve.decode_step", "layer.attention", "layer.mlp", "layer.unembed", "cim.quantize", "cim.matmul"}
+    assert runs["port"][0] == runs["jax"][0]
+    assert sorted(set(runs["port"][1]) - port_only) == runs["jax"][1] and port_only <= set(runs["port"][1])
     assert "fabric_ema_bits_total" in runs["port"][0] and "serve.request_summary" in runs["port"][1]
     tserve.main(argv + ["--device", "cpu", "--obs-metrics"])
     out = capsys.readouterr().out
